@@ -1,0 +1,126 @@
+"""Building blocks of the MobileNet backbone, eval mode, NCDHW tensors.
+
+Counterpart of ``mslesions3d_tpu/models/layers.py``. Tensors inside the
+model are (N, C, D, H, W) views in ``torch.channels_last_3d`` memory, which
+is the JAX package's NDHWC layout in memory. Conv weights live in the
+compute dtype; BatchNorm runs in float32 and casts back, as in the JAX
+package. Module and parameter names follow the reference ``state_dict``
+schema (stem ``<i>.0`` / ``<i>.1``, blocks ``conv1, bn1, conv2, bn2``), so
+reference checkpoints load with ``load_state_dict``.
+
+Inputs arrive in the compute dtype (``SSD3D`` casts the images once), and
+every block returns it. Only eval-mode BatchNorm is ported; training-mode
+BatchNorm (biased batch variance in the running update) comes with the
+training slice (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def torch_uniform_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """Fill with U(-1/sqrt(fan_in), 1/sqrt(fan_in)): torch's default Conv3d init.
+
+    The values are drawn in float32 and then rounded to the tensor's dtype,
+    as the JAX package rounds its float32 params at use.
+    """
+    bound = 1.0 / math.sqrt(fan_in)
+    values = torch.empty(tensor.shape, dtype=torch.float32, device=tensor.device)
+    values.uniform_(-bound, bound, generator=generator)
+    with torch.no_grad():
+        tensor.copy_(values)
+
+
+def init_conv_(conv: nn.Conv3d, generator: torch.Generator) -> None:
+    """The "torch" init scheme for one conv, from an explicit generator."""
+    fan_in = conv.weight.shape[1] * math.prod(conv.weight.shape[2:])
+    torch_uniform_(conv.weight, fan_in, generator)
+    if conv.bias is not None:
+        torch_uniform_(conv.bias, fan_in, generator)
+
+
+class BatchNorm3d(nn.Module):
+    """Eval-mode BatchNorm over the channel axis 1.
+
+    y = (x32 - mean) * rsqrt(var + eps) * weight + bias in float32, cast back
+    to the input dtype. Buffers carry torch's names, ``num_batches_tracked``
+    included, so reference checkpoints load strictly.
+    """
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+            self.num_batches_tracked.zero_()
+
+    def _channel(self, v: torch.Tensor) -> torch.Tensor:
+        return v.view(1, -1, 1, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "training-mode BatchNorm comes with the training slice (ROADMAP); "
+                "call .eval() first"
+            )
+        x32 = x.float()
+        y = (x32 - self._channel(self.running_mean)) * self._channel(
+            torch.rsqrt(self.running_var + self.epsilon)
+        ) * self._channel(self.weight) + self._channel(self.bias)
+        return y.to(x.dtype)
+
+    def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(gamma, beta) of the inference-time affine y = x * gamma + beta."""
+        gamma = self.weight * torch.rsqrt(self.running_var + self.epsilon)
+        beta = self.bias - self.running_mean * gamma
+        return gamma, beta
+
+
+class ConvBNReLU(nn.Sequential):
+    """Conv3d(k3, stride, explicit padding 1 at every stride, no bias) + BN + ReLU.
+
+    Children ``0`` (conv) and ``1`` (BN) give the reference stem's keys.
+    """
+
+    def __init__(self, in_features: int, features: int, strides=1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(
+            nn.Conv3d(in_features, features, 3, stride=strides, padding=1,
+                      bias=False, dtype=dtype),
+            BatchNorm3d(features),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn = self[0], self[1]
+        return torch.relu(bn(conv(x)))
+
+
+class DepthwiseSeparableBlock(nn.Module):
+    """Depthwise 3x3x3 conv + BN + ReLU, then pointwise 1x1x1 conv + BN + ReLU."""
+
+    def __init__(self, in_features: int, features: int, strides=1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = nn.Conv3d(in_features, in_features, 3, stride=strides,
+                               padding=1, groups=in_features, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm3d(in_features)
+        self.conv2 = nn.Conv3d(in_features, features, 1, bias=False, dtype=dtype)
+        self.bn2 = BatchNorm3d(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn1(self.conv1(x)))
+        return torch.relu(self.bn2(self.conv2(x)))

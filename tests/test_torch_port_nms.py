@@ -1,0 +1,217 @@
+"""The PyTorch port's NMS and detect path against the JAX package.
+
+The port's plain greedy NMS (the version CPU tensors use, and the one the
+CUDA kernel is held to on the card) must equal JAX ``greedy_nms`` and the
+Pallas kernel in interpret mode exactly: keep masks are booleans, so there
+is no tolerance. A numpy emulation of the CUDA kernel's bitmask algorithm
+checks its design here, where the kernel itself cannot run.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mslesions3d_tpu.kernels.nms import greedy_nms_pallas
+from mslesions3d_tpu.models.priors import default_scales, generate_priors
+from mslesions3d_tpu.ops.nms import detect_objects as jax_detect_objects
+from mslesions3d_tpu.ops.nms import greedy_nms as jax_greedy_nms
+from mslesions3d_tpu_torch.kernels.nms import MAX_K, SMEM_BUDGET, greedy_nms_cuda, scan_smem_bytes
+from mslesions3d_tpu_torch.ops.boxes import pairwise_iou
+from mslesions3d_tpu_torch.ops.nms import (
+    detect_objects,
+    detections_to_lists,
+    greedy_nms,
+    greedy_nms_sequential,
+)
+
+
+def _clustered_case():
+    """tests/test_kernels.py: K=200 (not a multiple of 32 or 128), random validity."""
+    rng = np.random.default_rng(3)
+    n, k = 4, 200
+    centers = rng.uniform(0.2, 0.8, size=(n, 25, 3))
+    idx = rng.integers(0, 25, size=(n, k))
+    lo = np.clip(
+        np.take_along_axis(centers, idx[..., None], 1)
+        + rng.normal(0, 0.03, (n, k, 3)) - 0.04, 0, 1,
+    )
+    hi = np.clip(lo + rng.uniform(0.04, 0.12, (n, k, 3)), 0, 1)
+    boxes = np.concatenate([lo, hi], -1).astype(np.float32)
+    return boxes, rng.uniform(size=(n, k)) > 0.15
+
+
+def _prefix_case():
+    """tests/test_kernels.py: prefix validity 90 / 200 / all of 384."""
+    rng = np.random.default_rng(9)
+    n, k = 3, 384
+    lo = rng.uniform(0, 0.7, (n, k, 3)).astype(np.float32)
+    hi = np.clip(lo + rng.uniform(0.05, 0.3, (n, k, 3)), 0, 1).astype(np.float32)
+    valid = np.zeros((n, k), bool)
+    valid[0, :90] = True
+    valid[1, :200] = True
+    valid[2, :] = True
+    return np.concatenate([lo, hi], -1), valid
+
+
+def _near_threshold_case():
+    """Pairs whose IoU straddles 0.5 by a few ulps, plus empty boxes (0/0).
+
+    Two unit-size cubes offset by s along one axis have IoU (1-s)/(1+s),
+    which is 0.5 at s = 1/3; s steps through the float32 neighbours of 1/3.
+    """
+    rng = np.random.default_rng(11)
+    third = np.float32(1.0) / np.float32(3.0)
+    shifts = [third]
+    for _ in range(6):
+        shifts = [np.nextafter(shifts[0], np.float32(0)), *shifts, np.nextafter(shifts[-1], np.float32(1))]
+    rows = []
+    for s in shifts:
+        scale = np.float32(rng.choice([0.125, 0.25, 0.1, 0.3]))
+        base = rng.uniform(0, 0.3, 3).astype(np.float32)
+        a = np.concatenate([base, base + scale])
+        b = a.copy()
+        axis = rng.integers(0, 3)
+        b[axis] += s * scale
+        b[axis + 3] += s * scale
+        empty = np.concatenate([base, base])  # zero volume: IoU 0/0 with itself
+        rows.append(np.stack([a, b, empty, empty]).astype(np.float32))
+    boxes = np.stack(rows)  # (13, 4, 6)
+    return boxes, np.ones(boxes.shape[:2], bool)
+
+
+CASES = {"clustered_k200": _clustered_case, "prefix_k384": _prefix_case,
+         "near_threshold": _near_threshold_case}
+
+
+def _jax_keep(boxes, valid):
+    return np.stack([
+        np.asarray(jax_greedy_nms(jnp.asarray(boxes[i]), jnp.asarray(valid[i]), 0.5))
+        for i in range(boxes.shape[0])
+    ])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_nms_equals_jax_and_pallas(case):
+    boxes, valid = CASES[case]()
+    ours = greedy_nms(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5).numpy()
+    np.testing.assert_array_equal(ours, _jax_keep(boxes, valid))
+    pallas = np.asarray(
+        greedy_nms_pallas(jnp.asarray(boxes), jnp.asarray(valid), 0.5, interpret=True)
+    )
+    np.testing.assert_array_equal(ours, pallas)
+    if case == "near_threshold":  # the case must really sit on both sides of t
+        assert ours[:, 1].any() and not ours[:, 1].all()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sequential_oracle_equals_fixpoint(case):
+    boxes, valid = CASES[case]()
+    fix = greedy_nms(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5)
+    for i in range(boxes.shape[0]):
+        seq = greedy_nms_sequential(torch.from_numpy(boxes[i]), torch.from_numpy(valid[i]), 0.5)
+        np.testing.assert_array_equal(seq.numpy(), fix[i].numpy())
+
+
+def test_wrapper_on_cpu_tensors_is_the_plain_version():
+    boxes, valid = _clustered_case()
+    before = greedy_nms_cuda.launches
+    keep = greedy_nms_cuda(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5)
+    assert greedy_nms_cuda.launches == before  # no kernel was launched
+    np.testing.assert_array_equal(keep.numpy(), _jax_keep(boxes, valid))
+
+
+def test_max_k_is_the_largest_that_fits_shared_memory():
+    assert scan_smem_bytes(MAX_K) <= SMEM_BUDGET < scan_smem_bytes(MAX_K + 1)
+    assert scan_smem_bytes(1000) == 129_000  # the headline K: 16 words per row
+    assert -(-MAX_K // 64) <= 32  # one word per lane of the walking warp
+
+
+def _bitmask_emulation(boxes, valid, t, rng):
+    """numpy mirror of csrc/nms.cu: mask words, block skips, scan.
+
+    Words the kernel never writes are filled with random bits, which proves
+    the scan never reads them.
+    """
+    n, k, _ = boxes.shape
+    nw = -(-k // 64)
+    iou = pairwise_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
+    mask = rng.integers(0, 2**63, size=(n, k, nw), dtype=np.uint64)  # torch.empty garbage
+    for row in range(n):
+        for rb in range(nw):
+            for cb in range(rb, nw):
+                if not valid[row, cb * 64:].any():
+                    continue  # block skipped: nothing past its first column is valid
+                for j in range(rb * 64, min(k, rb * 64 + 64)):
+                    bits = 0
+                    for c in range(min(64, k - cb * 64)):
+                        i = cb * 64 + c
+                        if i > j and iou[row, j, i] > t:
+                            bits |= 1 << c
+                    mask[row, j, cb] = np.uint64(bits)
+    keep = np.zeros((n, k), bool)
+    for row in range(n):
+        idx = np.nonzero(valid[row])[0]
+        count = int(idx[-1]) + 1 if idx.size else 0
+        words = -(-count // 64)
+        removed = [0] * words
+        for i in range(count):
+            w = i // 64
+            if valid[row, i] and not (removed[w] >> (i % 64)) & 1:
+                keep[row, i] = True
+                for lane in range(w, words):
+                    removed[lane] |= int(mask[row, i, lane])
+    return keep
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_bitmask_design_is_exact(case):
+    boxes, valid = CASES[case]()
+    rng = np.random.default_rng(1)
+    ours = _bitmask_emulation(boxes, valid, 0.5, rng)
+    np.testing.assert_array_equal(ours, _jax_keep(boxes, valid))
+
+
+def _detect_inputs(seed=0, batch=3, n_classes=3, size=64):
+    priors = generate_priors(
+        {3: (size // 16,) * 3, 5: (size // 32,) * 3, 7: (size // 64,) * 3},
+        default_scales((3, 5, 7), (size,) * 3, 6.0, 14.0), {3: [1.0], 5: [1.0], 7: [1.0]},
+    )
+    rng = np.random.default_rng(seed)
+    p = priors.shape[0]
+    locs = rng.normal(0, 0.5, (batch, p, 6)).astype(np.float32)
+    scores = rng.normal(0, 2.0, (batch, p, n_classes)).astype(np.float32)
+    return locs, scores, priors
+
+
+@pytest.mark.parametrize("top_k", [100, 7])
+def test_detect_objects_matches_jax(top_k):
+    """64^3 priors (P=1168): top_k=100 gives K=1000, the headline K.
+
+    count and labels must be equal; boxes and scores agree to 1e-6 (both
+    sides run the same float32 softmax and decode, which may round
+    differently by an ulp). Scores are distinct, so top-k order is unique.
+    """
+    locs, scores, priors = _detect_inputs()
+    kw = dict(n_classes=3, min_score=0.5, max_overlap=0.5, top_k=top_k)
+    ref = jax_detect_objects(jnp.asarray(locs), jnp.asarray(scores), jnp.asarray(priors), **kw)
+    ours = detect_objects(torch.from_numpy(locs), torch.from_numpy(scores),
+                          torch.from_numpy(priors), **kw)
+    assert int(np.asarray(ref["count"]).min()) > 0
+    assert {k: tuple(v.shape) for k, v in ours.items()} == {
+        k: tuple(np.shape(v)) for k, v in ref.items()}
+    np.testing.assert_array_equal(ours["count"].numpy(), np.asarray(ref["count"]))
+    np.testing.assert_array_equal(ours["labels"].numpy(), np.asarray(ref["labels"]))
+    np.testing.assert_allclose(ours["scores"].numpy(), np.asarray(ref["scores"]), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ours["boxes"].numpy(), np.asarray(ref["boxes"]), rtol=1e-6, atol=1e-6)
+
+
+def test_detections_to_lists_placeholder():
+    det = {
+        "boxes": torch.zeros((2, 3, 6)), "labels": torch.ones((2, 3), dtype=torch.int32),
+        "scores": torch.full((2, 3), 0.9), "count": torch.tensor([0, 2], dtype=torch.int32),
+    }
+    b, l, s = detections_to_lists(det)
+    np.testing.assert_array_equal(b[0], [[0, 0, 0, 1, 1, 1]])
+    assert l[0].tolist() == [0] and s[0].tolist() == [0.0]
+    assert b[1].shape == (2, 6) and l[1].tolist() == [1, 1]
