@@ -8,18 +8,33 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero and prints no result line):
 
 1. device: the card's name and power limit; TF32 off for convs and matmuls.
-2. build: nvcc builds every CUDA kernel of the served path from ``csrc/``.
+2. build: nvcc builds every CUDA kernel of the served paths from ``csrc/``
+   (K1 NMS, K2 fused depthwise, K3 fused tail), all three at once, and
+   ptxas's register, shared-memory and spill lines are printed.
 3. K1 (greedy 3D NMS) against its plain torch version on the card, with
    exact equality of the keep masks, on synthetic cases and on the real
-   candidate sets of the 96^3 model.
-4. the slice: a ``Detector`` at the bench's headline configuration (96^3,
+   candidate sets of the 96^3 model. K2 against its plain version on the
+   headline model's folded weights and real layer inputs (layers 3, 5, 7 at
+   batch 8) and at depths 1-3, in bf16 and float32: at most one ulp of the
+   dtype (the design aims at bit equality; mismatches are counted). K3
+   against its plain version on the headline tail (layers 4-7) and the real
+   layer-3 output at batch 8 and 32, in bf16, and at batch 8 once more with
+   the BN statistics calibrated on seeded volumes (maps of unit scale).
+4. the slices, each with the launch counts set to 0 just before it and read
+   just after: a ``Detector`` at the bench's headline configuration (96^3,
    bf16, full width, random weights from a seed) serves requests of 1, 3
-   and 8 volumes through a ``RequestBatcher``; the NMS kernel's launch count
-   must rise; the kernel and plain NMS give identical detections on the
-   same (locs, scores); the fp32 forward on the card agrees with the CPU's.
-5. times on the card: K1 and the plain version at N = 8 and 128 rows of
-   K = 1000 candidates, K1's bound, the detect path's parts, end-to-end
-   volumes/s at batch 1, 8 and 32, and a torch.profiler breakdown of the
+   and 8 volumes through a ``RequestBatcher``, first on the default path
+   (K1 must launch), then with ``use_pallas`` and ``use_pallas_tail`` (K1,
+   K2 and K3 must launch). The kernel and plain NMS give identical
+   detections on the same (locs, scores); the flagged model's locs/scores
+   agree with the default path's on the same weights, raw and BN-calibrated,
+   and both are set beside the float32 model's; the fp32 forward on
+   the card agrees with the CPU's, with and without the flags.
+5. times on the card: K1, K2 and K3 beside their plain versions and bounds
+   (and K2 beside the cuDNN conv + BN + ReLU it replaces), each as device
+   time (torch.profiler) and per call (CUDA events), the detect path
+   for the four flag settings, end-to-end volumes/s at batch 1, 8 and 32 on
+   the default and the fused path, and torch.profiler breakdowns of the
    device time by kernel with the device's idle share.
 6. one JSON line listing every ported kernel, then the card line, then the
    result line ``{"ok": true, "device": {...}}``.
@@ -32,6 +47,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import torch
@@ -39,21 +55,40 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from mslesions3d_tpu_torch.kernels.build import build
+from mslesions3d_tpu_torch.kernels.depthwise import depthwise_bn_relu, fused_depthwise_bn_relu_cuda
 from mslesions3d_tpu_torch.kernels.nms import greedy_nms, greedy_nms_cuda
+from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, tail_reference
 from mslesions3d_tpu_torch.models.ssd3d import SSD3DConfig
 from mslesions3d_tpu_torch.ops.nms import detect_objects, nms_candidates, select_detections
 from mslesions3d_tpu_torch.serving import Detector, RequestBatcher
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): float32 outside the
-# tensor cores, and device memory bandwidth.
+# tensor cores, bf16 on the tensor cores, and device memory bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # float32 operations per candidate pair in csrc/nms.cu: per axis min, max,
 # sub, clamp (12); two products; add, sub and div for the union and IoU;
 # the compare.
 NMS_OPS_PER_PAIR = 18
+# float32 operations per output element of a depthwise 3^3 + BN + ReLU:
+# 27 products, 27 sums, the BN product and sum, the ReLU.
+DW_OPS_PER_ELEMENT = 57
 HEADLINE = dict(n_classes=2, input_channels=1, input_size=(96, 96, 96), dtype="bfloat16",
                 min_score=0.5, max_overlap=0.5, top_k=100)
+FLAG_SETTINGS = {
+    "off": {}, "use_pallas": dict(use_pallas=True),
+    "use_pallas_tail": dict(use_pallas_tail=True),
+    "both": dict(use_pallas=True, use_pallas_tail=True),
+}
+KERNELS = ("nms", "depthwise", "tail")
+# K3 in bf16 against its plain version: share of differing elements per
+# emitted map (5, 7); tests/test_torch_port_tail.py sets out why
+TAIL_MAX_DIFFERING = (0.01, 0.15)
+# the flagged model's locs/scores against the default path's, bf16 at 96^3:
+# relative Frobenius error. The two round differently (K2 once instead of
+# twice, K3 keeps float32 between blocks), each about bf16's 2^-8 per step.
+PATHS_MAX_REL_ERR = 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -81,6 +116,34 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device ms per call of the kernels fn launches: the sum of their
+    durations in a torch.profiler trace, host gaps excluded."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    check(rows, "the profiler saw no kernel on the card")
+    return sum(e.self_device_time_total for e in rows) / iters / 1e3
+
+
+def ulp(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One ulp of ``dtype`` at the magnitude of v (float32 tensor)."""
+    tiny = torch.finfo(dtype).tiny
+    return torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(tiny))))
+
+
+def bound(ops_by_peak: dict, nbytes: float):
+    """(bound ms, bound_by): the larger of bytes over the memory rate and
+    each kind of operations over its peak rate."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = max((ops / peak * 1e3 for peak, ops in ops_by_peak.items()), default=0.0)
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms > bytes_ms else "bytes")
 
 
 # ---------------------------------------------------------------- NMS cases
@@ -157,10 +220,118 @@ def nms_bound(valid: torch.Tensor):
     last = torch.where(valid, pos, 0).amax(dim=1).double()
     ops = float((last * (last - 1) / 2).sum()) * NMS_OPS_PER_PAIR
     nbytes = n * k * (6 * 4 + 1) + n * k  # boxes and valid in, keep out
-    ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), ops, nbytes
+    return (*bound({PEAK_FP32_FLOPS: ops}, nbytes), ops, nbytes)
 
 
+# ---------------------------------------------------------------- K2 and K3
+def block_dw_operands(block, dtype):
+    """(weights, gamma, beta) of a block's depthwise half, weights in dtype."""
+    gamma, beta = block.bn1.folded()
+    return block._dw_weights().to(dtype), gamma, beta
+
+
+def compare_dw(name, x, weights, gamma, beta):
+    """K2 and its plain version on the same card tensors: (mismatches, max abs err)."""
+    out = fused_depthwise_bn_relu_cuda(x, weights, gamma, beta)
+    torch.cuda.synchronize()
+    plain = depthwise_bn_relu(x, weights, gamma, beta)
+    a, b = out.float(), plain.float()
+    diff = (a - b).abs()
+    mismatches, err = int((out != plain).sum()), float(diff.max())
+    within = bool((diff <= ulp(torch.maximum(a.abs(), b.abs()), x.dtype)).all())
+    log(f"K2 vs plain [{name}] {tuple(x.shape)} {str(x.dtype)[6:]}: mismatches {mismatches} "
+        f"of {out.numel():,}, max abs err {err:.3e} (tolerance: one {str(x.dtype)[6:]} ulp "
+        f"at each element's magnitude: {'met' if within else 'NOT met'})")
+    check(within, f"K2 disagrees with its plain version on {name} by more than one ulp")
+    return mismatches, err
+
+
+def dw_bound(x):
+    n, c, e = x.numel(), x.shape[1], x.element_size()
+    nbytes = 2 * n * e + 27 * c * e + 2 * c * 4  # x in, out, weights, gamma/beta
+    return bound({PEAK_FP32_FLOPS: n * DW_OPS_PER_ELEMENT}, nbytes)
+
+
+def compare_tail(name, x, layers, emit):
+    """K3 and its plain version on the same card tensors: (max abs err, shares)."""
+    outs = fused_tail_cuda(x, layers, emit)
+    torch.cuda.synchronize()
+    refs = tail_reference(x, layers, emit)
+    errs, shares = [], []
+    for j, (out, ref, max_share) in enumerate(zip(outs, refs, TAIL_MAX_DIFFERING)):
+        a, b = out.float(), ref.float()
+        diff = (a - b).abs()
+        mag = torch.maximum(a.abs(), b.abs())
+        within = bool((diff <= ulp(mag.clamp_min(float(mag.max()) / 4), x.dtype)).all())
+        share = float((diff > 0).float().mean())
+        errs.append(float(diff.max()))
+        shares.append(share)
+        log(f"K3 vs plain [{name}] map {j} {tuple(out.shape)}: differing share {share:.5f} "
+            f"(bound {max_share}), max abs err {errs[-1]:.3e} (bound: one bf16 ulp at the "
+            f"larger of the element's magnitude and a quarter of the map's largest, "
+            f"{float(mag.max()):.4f}: {'met' if within else 'NOT met'})")
+        check(within and share < max_share, f"K3 disagrees with its plain version on {name}")
+    return max(errs), shares
+
+
+def tail_bound(x, layers, emit):
+    """Bytes: x in, emitted maps out, weights once; operations: the depthwise
+    and epilogue float32 work, and the pointwise products on the tensor cores
+    (bf16) or in float32."""
+    e, b = x.element_size(), x.shape[0]
+    dims = x.shape[2:]
+    nbytes, fp32_ops, pw_ops = x.numel() * e, 0, 0
+    for i, layer in enumerate(layers):
+        s = int(layer["stride"])
+        cin, cout = layer["pw_w"].shape
+        dims = [(n - 1) // s + 1 for n in dims]
+        vox = b * dims[0] * dims[1] * dims[2]
+        fp32_ops += vox * cin * DW_OPS_PER_ELEMENT + vox * cout * 3
+        pw_ops += vox * cin * cout * 2
+        nbytes += (27 * cin + cin * cout) * e + 2 * (cin + cout) * 4
+        if i in emit:
+            nbytes += vox * cout * e
+    pw_peak = PEAK_BF16_TENSOR_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    if pw_peak == PEAK_FP32_FLOPS:
+        return bound({PEAK_FP32_FLOPS: fp32_ops + pw_ops}, nbytes)
+    return bound({PEAK_FP32_FLOPS: fp32_ops, pw_peak: pw_ops}, nbytes)
+
+
+@torch.no_grad()
+def calibrate_bn(model, x) -> None:
+    """Set every BN's running statistics of the tower to the batch statistics
+    of its input on x, layer by layer, as training would leave them, so the
+    activations keep unit scale through the tower. (With the init's identity
+    BN they shrink about threefold a block, and the tail's maps are ~1e-4.)"""
+    def fit(bn, y):
+        y32 = y.float()
+        bn.running_mean.copy_(y32.mean(dim=(0, 2, 3, 4)))
+        bn.running_var.copy_(y32.var(dim=(0, 2, 3, 4), unbiased=False))
+        return torch.relu(bn(y))
+
+    h = x.permute(0, 4, 1, 2, 3)
+    for layer in model.base.features:
+        if hasattr(layer, "conv1"):
+            h = fit(layer.bn2, layer.conv2(fit(layer.bn1, layer.conv1(h))))
+        else:
+            h = fit(layer[1], layer[0](h))
+
+
+def unfused_depthwise(block, x):
+    """The default path's depthwise half: cuDNN conv, BN, ReLU."""
+    return torch.relu(block.bn1(block.conv1(x)))
+
+
+def layer_inputs(model, x):
+    """The input of every backbone layer of the default-path model."""
+    h, ins = x.permute(0, 4, 1, 2, 3), []
+    for layer in model.base.features:
+        ins.append(h)
+        h = layer(h)
+    return ins
+
+
+# ---------------------------------------------------------------- profiling
 def device_busy_ms(prof) -> tuple[float, float]:
     """(busy, span) in ms of the profiled kernels: busy is the union of
     their intervals, so kernels that overlap count once."""
@@ -176,6 +347,57 @@ def device_busy_ms(prof) -> tuple[float, float]:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     return busy / 1e3, (max(end for _, end in spans) - spans[0][0]) / 1e3
+
+
+def profile_detect(name, detector, x, card, calls=3):
+    with torch.inference_mode():
+        detector.detect(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                detector.detect(x)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms, span_ms = device_busy_ms(prof)
+    launches = sum(e.count for e in rows) // calls
+    cudnn_dw = sum(e.count for e in rows if "convolveNd" in e.key) // calls
+    log(f"profile [{name}] of {calls} Detector.detect calls at batch {x.shape[0]}: device busy "
+        f"{busy_ms:.3f} ms (union of kernel intervals) of a {span_ms:.3f} ms span from the "
+        f"first kernel's start to the last one's end, idle share {1 - busy_ms / span_ms:.3f}; "
+        f"host window {window_ms:.3f} ms; {launches} kernel launches per call, "
+        f"{cudnn_dw} of them cuDNN implicit_convolveNd [{card}]")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3 / calls:9.3f} ms/call  {e.count // calls:4d} "
+            f"launches/call  {e.key[:90]}")
+
+
+def serve(detector, requests, counters):
+    """Serve the requests through a RequestBatcher; launch counts of the run."""
+    batcher = RequestBatcher(detector.predict, max_rows=32)
+    try:
+        for c in counters:
+            c.launches = 0
+        with ThreadPoolExecutor(max_workers=len(requests)) as ex:
+            served = list(ex.map(batcher.submit, requests))
+        launches = [c.launches for c in counters]
+    finally:
+        batcher.close()
+    return served, launches, batcher.device_calls
+
+
+def check_served(requests, served, config):
+    for req, det in zip(requests, served):
+        n = req.shape[0]
+        check(det["boxes"].shape == (n, config.top_k, 6), f"boxes shape {det['boxes'].shape}")
+        check(det["labels"].shape == det["scores"].shape == (n, config.top_k), "labels/scores shape")
+        check(det["count"].shape == (n,), "count shape")
+        check(all(np.isfinite(det[k]).all() for k in ("boxes", "scores")), "non-finite output")
+        check(((det["count"] >= 0) & (det["count"] <= config.top_k)).all(), "count out of range")
+    counts = np.concatenate([d["count"] for d in served])
+    check(counts.max() > 0, "no volume has a detection")
+    return counts
 
 
 # ---------------------------------------------------------------- phases
@@ -196,13 +418,16 @@ def main() -> int:
         f"torch {torch.__version__} CUDA {torch.version.cuda}")
     log("TF32 is off for cuDNN convolutions and for matmuls")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    path, build_log = build("nms")
-    log(f"built {path.name} in {time.perf_counter() - t0:.1f} s; nvcc -Xptxas -v:")
-    for line in build_log.splitlines():
-        if "ptxas info" in line or "spill" in line:
-            log("  " + line.strip())
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as ex:
+        built = dict(zip(KERNELS, ex.map(build, KERNELS)))
+    log(f"built {', '.join(p.name for p, _ in built.values())} in "
+        f"{time.perf_counter() - t0:.1f} s; nvcc -Xptxas -v:")
+    for name, (_, build_log) in built.items():
+        for line in build_log.splitlines():
+            if any(k in line for k in ("Compiling entry", "Used", "spill", "smem")):
+                log(f"  [{name}] " + line.strip())
 
     # 3. K1 against its plain version on synthetic cases
     rng = np.random.default_rng(0)
@@ -212,12 +437,15 @@ def main() -> int:
     mismatches += compare_nms("near threshold", *near_threshold_case())
     mismatches += compare_nms("random N=128 K=1000", *random_case(rng))
 
-    # 4. the slice at the headline configuration
     config = SSD3DConfig.create(**HEADLINE)
-    detector = Detector(config, device="cuda", seed=0, batch_sizes=(1, 8, 32))
+    detectors = {name: Detector(SSD3DConfig.create(**HEADLINE, **flags), device="cuda", seed=0,
+                                batch_sizes=(1, 8, 32))
+                 for name, flags in FLAG_SETTINGS.items()}
+    detector, fused = detectors["off"], detectors["both"]
     n_params = sum(p.numel() for p in detector.model.parameters())
     log(f"Detector: 96^3 bf16 MobileNet SSD3D width 1.0, {n_params:,} parameters, "
-        f"{detector.priors.shape[0]} priors, K = {min(10 * config.top_k, detector.priors.shape[0])}")
+        f"{detector.priors.shape[0]} priors, K = {min(10 * config.top_k, detector.priors.shape[0])}; "
+        f"one per flag setting {list(FLAG_SETTINGS)}, all with the weights of seed 0")
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def volumes(b):
@@ -233,113 +461,202 @@ def main() -> int:
             mismatches += compare_nms(f"96^3 model candidates, batch {b}",
                                       boxes.contiguous(), valid)
 
+    # K2 on the headline model's folded weights and real layer inputs
+    blocks = detector.model.base.features
+    dw_cases, dw_mismatches, dw_err = {}, 0, 0.0
+    with torch.inference_mode():
+        inputs = {b: layer_inputs(detector.model, volumes(b).to(config.compute_dtype))
+                  for b in (8, 32)}
+        for layer in (3, 5, 7):
+            x = inputs[8][layer].contiguous(memory_format=torch.channels_last_3d)
+            dw_cases[layer] = (x, *block_dw_operands(blocks[layer], x.dtype))
+        edge_rng = torch.Generator(device="cuda").manual_seed(1)
+        for dtype in (torch.bfloat16, torch.float32):
+            cases = [(f"layer {i}", x.to(dtype), *block_dw_operands(blocks[i], dtype))
+                     for i, (x, *_) in dw_cases.items()]
+            for depth in (1, 2, 3):
+                x = torch.randn((2, depth, 8, 8, 128), generator=edge_rng, device="cuda")
+                cases.append((f"depth {depth}, layer 3 weights",
+                              x.to(dtype).permute(0, 4, 1, 2, 3),
+                              *block_dw_operands(blocks[3], dtype)))
+            for name, x, w, g, bt in cases:
+                m, err = compare_dw(name, x, w, g, bt)
+                dw_mismatches += m
+                dw_err = max(dw_err, err)
+
+        # K3 on the headline tail and the real layer-3 output
+        tail_layers = [blocks[i].folded_params() for i in range(4, 8)]
+        tail_x = {b: blocks[3](inputs[b][3]).contiguous(memory_format=torch.channels_last_3d)
+                  for b in (8, 32)}
+        tail_err, tail_share = {}, {}
+        for b, x in tail_x.items():
+            tail_err[b], tail_share[b] = compare_tail(f"batch {b}", x, tail_layers, (1, 3))
+
+        # the same weights with BN calibrated on seeded volumes: maps of unit scale
+        calibrated = Detector(config, detector.model.state_dict(), device="cuda").model
+        calibrate_bn(calibrated, volumes(8).to(config.compute_dtype))
+        cal_state = calibrated.state_dict()
+        cal_blocks = calibrated.base.features
+        x = cal_blocks[3](layer_inputs(calibrated, volumes(8).to(config.compute_dtype))[3])
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+        cal_tail = [cal_blocks[i].folded_params() for i in range(4, 8)]
+        err, shares = compare_tail("batch 8, BN calibrated", x, cal_tail, (1, 3))
+        tail_err[8] = max(tail_err[8], err)
+
+    # 4. the slices
     host_rng = np.random.default_rng(1)
     requests = [host_rng.standard_normal((n, *config.input_size, 1), dtype=np.float32)
                 for n in (1, 3, 8)]
-    batcher = RequestBatcher(detector.predict, max_rows=32)
-    try:
-        greedy_nms_cuda.launches = 0
-        with ThreadPoolExecutor(max_workers=len(requests)) as ex:
-            served = list(ex.map(batcher.submit, requests))
-        main_path_launches = greedy_nms_cuda.launches
-    finally:
-        batcher.close()
-    log(f"served requests of {[r.shape[0] for r in requests]} volumes in "
-        f"{batcher.device_calls} device calls; K1 launches {main_path_launches}")
-    check(main_path_launches > 0, "the served path did not launch the NMS kernel")
-    for req, det in zip(requests, served):
-        n = req.shape[0]
-        check(det["boxes"].shape == (n, config.top_k, 6), f"boxes shape {det['boxes'].shape}")
-        check(det["labels"].shape == det["scores"].shape == (n, config.top_k), "labels/scores shape")
-        check(det["count"].shape == (n,), "count shape")
-        check(all(np.isfinite(det[k]).all() for k in ("boxes", "scores")), "non-finite output")
-        check(((det["count"] >= 0) & (det["count"] <= config.top_k)).all(), "count out of range")
-    counts = np.concatenate([d["count"] for d in served])
-    log(f"detections per volume: {counts.tolist()}")
-    check(counts.max() > 0, "no volume has a detection")
+    served, (k1_default,), calls = serve(detector, requests, [greedy_nms_cuda])
+    log(f"default path: served requests of {[r.shape[0] for r in requests]} volumes in "
+        f"{calls} device calls; K1 launches {k1_default}")
+    check(k1_default > 0, "the served path did not launch the NMS kernel")
+    log(f"detections per volume: {check_served(requests, served, config).tolist()}")
 
+    counters = [greedy_nms_cuda, fused_depthwise_bn_relu_cuda, fused_tail_cuda]
+    served_fused, (k1_fused, k2_fused, k3_fused), calls = serve(fused, requests, counters)
+    log(f"use_pallas + use_pallas_tail path: served requests of "
+        f"{[r.shape[0] for r in requests]} volumes in {calls} device calls; launches: "
+        f"K1 {k1_fused}, K2 {k2_fused}, K3 {k3_fused}")
+    check(min(k1_fused, k2_fused, k3_fused) > 0,
+          "the fused served path did not launch every kernel (K1, K2, K3)")
+    log(f"detections per volume: {check_served(requests, served_fused, config).tolist()}")
+
+    kw = dict(n_classes=config.n_classes, top_k=config.top_k)
     with torch.inference_mode():
         x = volumes(8).to(config.compute_dtype)
         locs, scores = detector.model(x)
-        kw = dict(n_classes=config.n_classes, top_k=config.top_k)
         det = detect_objects(locs, scores, detector.priors, min_score=config.min_score,
                              max_overlap=config.max_overlap, **kw)
         boxes, cscores, valid = nms_candidates(locs, scores, detector.priors,
                                                min_score=config.min_score, **kw)
         plain = select_detections(boxes, cscores, greedy_nms(boxes, valid, config.max_overlap), **kw)
         torch.cuda.synchronize()
-    for key in det:
-        check(torch.equal(det[key], plain[key]), f"detect_objects with K1 != plain NMS in {key}")
-    log("detect_objects with K1 == detect_objects with the plain NMS (all four outputs, batch 8)")
+        for key in det:
+            check(torch.equal(det[key], plain[key]), f"detect_objects with K1 != plain NMS in {key}")
+        log("detect_objects with K1 == detect_objects with the plain NMS (all four outputs, batch 8)")
 
-    small = SSD3DConfig.create(n_classes=2, input_channels=1, input_size=(32, 32, 32))
-    gpu32 = Detector(small, device="cuda", seed=3).model
-    cpu32 = Detector(small, device="cpu", seed=3).model
-    xs = torch.from_numpy(host_rng.standard_normal((2, 32, 32, 32, 1), dtype=np.float32))
+        # the fused path against the default path, and both against float32,
+        # on the seed's weights and on the BN-calibrated ones
+        for weights, state in (("seed 0", detector.model.state_dict()),
+                               ("seed 0, BN calibrated", cal_state)):
+            models = [Detector(SSD3DConfig.create(**dict(HEADLINE, **flags)), state,
+                               device="cuda").model
+                      for flags in (FLAG_SETTINGS["both"], {}, dict(dtype="float32"))]
+            outs = [m(x.float() if i == 2 else x) for i, m in enumerate(models)]
+            for name, a, b, r in zip(("locs", "scores"), *outs):
+                a, b = a.float(), b.float()
+                rel = float((a - b).norm() / b.norm())
+                rel_a, rel_b = float((a - r).norm() / r.norm()), float((b - r).norm() / r.norm())
+                log(f"96^3 bf16 batch 8 [{weights}], {name}: use_pallas + use_pallas_tail vs "
+                    f"default path: relative error {rel:.3e} (bound {PATHS_MAX_REL_ERR}), max "
+                    f"abs diff {float((a - b).abs().max()):.3e}; against the float32 model on "
+                    f"the same weights: fused {rel_a:.3e}, default {rel_b:.3e}")
+                check(rel < PATHS_MAX_REL_ERR,
+                      f"the fused path's {name} disagree with the default path's [{weights}]")
+            del models, outs
+
+    for name in ("off", "both"):
+        small = SSD3DConfig.create(n_classes=2, input_channels=1, input_size=(32, 32, 32),
+                                   **FLAG_SETTINGS[name])
+        gpu32 = Detector(small, device="cuda", seed=3).model
+        cpu32 = Detector(small, device="cpu", seed=3).model
+        xs = torch.from_numpy(host_rng.standard_normal((2, 32, 32, 32, 1), dtype=np.float32))
+        with torch.inference_mode():
+            outs_gpu = [t.cpu() for t in gpu32(xs.cuda())]
+            outs_cpu = cpu32(xs)
+        for out, a, b in zip(("locs", "scores"), outs_gpu, outs_cpu):
+            err = float((a - b).abs().max())
+            log(f"fp32 32^3 forward [{name}], card vs CPU: {out} max abs diff {err:.3e}")
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-5), f"fp32 forward [{name}] {out}: card != CPU")
+
+    # 5. times on the card. Each kernel, its plain version and (for K2) the
+    # cuDNN sequence it replaces are timed twice: per call with CUDA events
+    # over back-to-back calls, which is what a caller pays, host launch work
+    # included where the host is slower than the card; and, after the
+    # host-clock measurements, as the device time of the kernels one call
+    # launches (torch.profiler, host gaps excluded), which the bound compares.
+    timed = {}
+
+    def time_calls(key, bound_ms, bound_by, **fns):
+        """CUDA-event ms per call of each (fn, iters) in fns."""
+        timed[key] = dict(bound_ms=bound_ms, bound_by=bound_by, fns=fns, **{
+            f"{field}_call_ms": cuda_ms(fn, iters=n) for field, (fn, n) in fns.items()})
+
     with torch.inference_mode():
-        outs_gpu = [t.cpu() for t in gpu32(xs.cuda())]
-        outs_cpu = cpu32(xs)
-    for name, a, b in zip(("locs", "scores"), outs_gpu, outs_cpu):
-        err = float((a - b).abs().max())
-        log(f"fp32 32^3 forward, card vs CPU: {name} max abs diff {err:.3e}")
-        check(torch.allclose(a, b, rtol=1e-4, atol=1e-5), f"fp32 forward {name}: card != CPU")
+        for b in (8, 128):
+            boxes, _, valid = cand[b]
+            boxes = boxes.contiguous()
+            bound_ms, bound_by, ops, nbytes = nms_bound(valid)
+            log(f"K1 bound N={valid.shape[0]} K={valid.shape[1]} valid share "
+                f"{float(valid.float().mean()):.3f}: {bound_ms:.5f} ms by {bound_by} ({ops:.3e} "
+                f"fp32 ops at 67 TFLOP/s; {nbytes:,} bytes at 3.35 TB/s)")
+            time_calls(f"K1 N={b} K=1000", bound_ms, bound_by,
+                       kernel=(partial(greedy_nms_cuda, boxes, valid, 0.5), 50),
+                       plain=(partial(greedy_nms, boxes, valid, 0.5), 5))
+        for layer, (x, w, g, bt) in dw_cases.items():
+            time_calls(f"K2 layer {layer} {tuple(x.shape)} bf16", *dw_bound(x),
+                       kernel=(partial(fused_depthwise_bn_relu_cuda, x, w, g, bt), 50),
+                       plain=(partial(depthwise_bn_relu, x, w, g, bt), 10),
+                       unfused=(partial(unfused_depthwise, blocks[layer], x), 50))
+        for b, x in tail_x.items():
+            time_calls(f"K3 batch {b} {tuple(x.shape)} bf16, layers 4-7", *tail_bound(
+                x, tail_layers, (1, 3)),
+                kernel=(partial(fused_tail_cuda, x, tail_layers, (1, 3)), 50),
+                plain=(partial(tail_reference, x, tail_layers, (1, 3)), 10))
+    log("no PyTorch call computes 3D greedy NMS, a depthwise conv with its BN and ReLU, or a "
+        "chain of depthwise-separable blocks: library_ms is null for K1, K2 and K3")
 
-    # 5. times on the card
-    times = {}
-    for b in (8, 128):
-        boxes, _, valid = cand[b]
-        boxes = boxes.contiguous()
-        bound_ms, bound_by, ops, nbytes = nms_bound(valid)
-        k_ms = cuda_ms(lambda: greedy_nms_cuda(boxes, valid, 0.5), iters=50)
-        p_ms = cuda_ms(lambda: greedy_nms(boxes, valid, 0.5), iters=5, warmup=1)
-        share = float(valid.float().mean())
-        times[b] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log(f"K1 time N={valid.shape[0]} K={valid.shape[1]} valid share {share:.3f}: "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-            f"({ops:.3e} fp32 ops at 67 TFLOP/s; {nbytes:,} bytes at 3.35 TB/s) [{card}]")
-    log("no PyTorch call computes 3D greedy NMS: library_ms is null")
-
+    # three rounds over the four settings, each round in another order: the
+    # spread between rounds is part of the result
+    names = list(detectors)
     with torch.inference_mode():
         for b in (1, 32):
             x = volumes(b).to(config.compute_dtype)
-            fwd_ms = cuda_ms(lambda: detector.model(x), iters=10)
-            locs, scores = detector.model(x)
-            det_ms = cuda_ms(lambda: detect_objects(
-                locs, scores, detector.priors, min_score=config.min_score,
-                max_overlap=config.max_overlap, **kw), iters=10)
-            all_ms = cuda_ms(lambda: detector.detect(x), iters=10)
-            log(f"batch {b} on the card: forward {fwd_ms:.3f} ms, detect_objects {det_ms:.3f} ms, "
-                f"Detector.detect {all_ms:.3f} ms [{card}]")
+            detect_ms = {name: [] for name in names}
+            for r in range(3):
+                for name in names[r:] + names[:r]:
+                    det_ = detectors[name]
+                    fwd_ms = cuda_ms(lambda: det_.model(x), iters=10)
+                    locs, scores = det_.model(x)
+                    det_ms = cuda_ms(lambda: detect_objects(
+                        locs, scores, det_.priors, min_score=config.min_score,
+                        max_overlap=config.max_overlap, **kw), iters=10)
+                    detect_ms[name].append(cuda_ms(lambda: det_.detect(x), iters=10))
+                    log(f"batch {b} on the card [{name}] round {r}: forward {fwd_ms:.3f} ms, "
+                        f"detect_objects {det_ms:.3f} ms, Detector.detect "
+                        f"{detect_ms[name][-1]:.3f} ms [{card}]")
+            for name, ms in detect_ms.items():
+                log(f"Detector.detect batch {b} [{name}]: median {float(np.median(ms)):.3f} ms, "
+                    f"range {min(ms):.3f}-{max(ms):.3f} ms over 3 rounds [{card}]")
 
     for b in (1, 8, 32):
         imgs = host_rng.standard_normal((b, *config.input_size, 1), dtype=np.float32)
-        for _ in range(2):
-            detector.predict(imgs)
         iters = {1: 20, 8: 10, 32: 5}[b]
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            detector.predict(imgs)
-        dt = time.perf_counter() - t0
-        log(f"Detector.predict batch {b}: {b * iters / dt:.1f} volumes/s "
-            f"({dt / iters * 1e3:.2f} ms per call, numpy in and out) [{card}]")
+        for name in ("off", "both", "both", "off"):
+            det_ = detectors[name]
+            for _ in range(2):
+                det_.predict(imgs)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                det_.predict(imgs)
+            dt = time.perf_counter() - t0
+            log(f"Detector.predict [{name}] batch {b}: {b * iters / dt:.1f} volumes/s "
+                f"({dt / iters * 1e3:.2f} ms per call, numpy in and out) [{card}]")
 
     # profiled last: the profiler may leave tracing overhead behind it
     with torch.inference_mode():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                detector.detect(x)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
-    kernel_rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms, span_ms = device_busy_ms(prof)
-    log(f"profile of 3 Detector.detect calls at batch 32: device busy {busy_ms:.3f} ms "
-        f"(union of kernel intervals) of a {span_ms:.3f} ms span from the first kernel's "
-        f"start to the last one's end, idle share {1 - busy_ms / span_ms:.3f}; host window "
-        f"{window_ms:.3f} ms [{card}]")
-    for e in sorted(kernel_rows, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"  {e.self_device_time_total / 1e3 / 3:9.3f} ms/call  {e.count // 3:4d} launches/call  "
-            f"{e.key[:90]}")
+        for key, t in timed.items():
+            for field, (fn, n) in t.pop("fns").items():
+                t[f"{field}_ms"] = device_ms(fn, iters=n)
+            unfused = (f", cuDNN depthwise conv + BN + ReLU {t['unfused_ms']:.4f} ms "
+                       f"({t['unfused_call_ms']:.4f} per call)" if "unfused_ms" in t else "")
+            log(f"{key}: kernel {t['kernel_ms']:.4f} ms device time ({t['kernel_call_ms']:.4f} "
+                f"ms per call), plain {t['plain_ms']:.4f} ms ({t['plain_call_ms']:.4f} per "
+                f"call){unfused}, bound {t['bound_ms']:.5f} ms by {t['bound_by']} [{card}]")
+    x = volumes(32).to(config.compute_dtype)
+    for name in ("off", "both"):
+        profile_detect(name, detectors[name], x, card)
 
     # 6. kernels line, card line, result line
     kernels = [{
@@ -347,15 +664,52 @@ def main() -> int:
         "route": "cuda",
         "source": "mslesions3d_tpu_torch/csrc/nms.cu",
         "replaces": "mslesions3d_tpu/kernels/nms.py:134",
-        "launches": main_path_launches,
+        "launches": k1_default,
+        "launches_fused_path": k1_fused,
         "max_abs_err": 0.0 if mismatches == 0 else 1.0,
         "mismatches": mismatches,
-        "ms": times[8]["ms"],
-        "plain_ms": times[8]["plain_ms"],
-        "bound_ms": times[8]["bound_ms"],
-        "bound_by": times[8]["bound_by"],
+        "ms": timed["K1 N=8 K=1000"]["kernel_ms"],
+        "call_ms": timed["K1 N=8 K=1000"]["kernel_call_ms"],
+        "plain_ms": timed["K1 N=8 K=1000"]["plain_ms"],
+        "plain_call_ms": timed["K1 N=8 K=1000"]["plain_call_ms"],
+        "bound_ms": timed["K1 N=8 K=1000"]["bound_ms"],
+        "bound_by": timed["K1 N=8 K=1000"]["bound_by"],
         "library_ms": None,
         "shape": "N=8 K=1000: the served batch of 8, candidates of the 96^3 model",
+    }, {
+        "name": "fused_depthwise_bn_relu",
+        "route": "cuda",
+        "source": "mslesions3d_tpu_torch/csrc/depthwise.cu",
+        "replaces": "mslesions3d_tpu/kernels/depthwise.py:82",
+        "launches": k2_fused,
+        "max_abs_err": dw_err,
+        "mismatches": dw_mismatches,
+        "ms": timed["K2 layer 3 (8, 128, 12, 12, 12) bf16"]["kernel_ms"],
+        "call_ms": timed["K2 layer 3 (8, 128, 12, 12, 12) bf16"]["kernel_call_ms"],
+        "plain_ms": timed["K2 layer 3 (8, 128, 12, 12, 12) bf16"]["plain_ms"],
+        "plain_call_ms": timed["K2 layer 3 (8, 128, 12, 12, 12) bf16"]["plain_call_ms"],
+        "bound_ms": timed["K2 layer 3 (8, 128, 12, 12, 12) bf16"]["bound_ms"],
+        "bound_by": timed["K2 layer 3 (8, 128, 12, 12, 12) bf16"]["bound_by"],
+        "unfused_ms": timed["K2 layer 3 (8, 128, 12, 12, 12) bf16"]["unfused_ms"],
+        "library_ms": None,
+        "shape": "(8, 128, 12, 12, 12) bf16: layer 3 of the 96^3 model at the served batch of 8",
+    }, {
+        "name": "fused_tail",
+        "route": "cuda",
+        "source": "mslesions3d_tpu_torch/csrc/tail.cu",
+        "replaces": "mslesions3d_tpu/kernels/tail.py:106",
+        "launches": k3_fused,
+        "max_abs_err": tail_err[8],
+        "differing_share": tail_share[8],
+        "differing_share_bn_calibrated": shares,
+        "ms": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["kernel_ms"],
+        "call_ms": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["kernel_call_ms"],
+        "plain_ms": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["plain_ms"],
+        "plain_call_ms": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["plain_call_ms"],
+        "bound_ms": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["bound_ms"],
+        "bound_by": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["bound_by"],
+        "library_ms": None,
+        "shape": "layers 4-7 of the 96^3 model on (8, 128, 12, 12, 12) bf16, 4 launches a call",
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,8 @@ import math
 import torch
 from torch import nn
 
+from ..kernels.depthwise import fold_bn, fused_depthwise_bn_relu_cuda
+
 
 def torch_uniform_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
     """Fill with U(-1/sqrt(fan_in), 1/sqrt(fan_in)): torch's default Conv3d init.
@@ -85,9 +87,8 @@ class BatchNorm3d(nn.Module):
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(gamma, beta) of the inference-time affine y = x * gamma + beta."""
-        gamma = self.weight * torch.rsqrt(self.running_var + self.epsilon)
-        beta = self.bias - self.running_mean * gamma
-        return gamma, beta
+        return fold_bn(self.weight, self.bias, self.running_mean, self.running_var,
+                       self.epsilon)
 
 
 class ConvBNReLU(nn.Sequential):
@@ -110,17 +111,52 @@ class ConvBNReLU(nn.Sequential):
 
 
 class DepthwiseSeparableBlock(nn.Module):
-    """Depthwise 3x3x3 conv + BN + ReLU, then pointwise 1x1x1 conv + BN + ReLU."""
+    """Depthwise 3x3x3 conv + BN + ReLU, then pointwise 1x1x1 conv + BN + ReLU.
+
+    ``use_pallas`` sends the depthwise half to the fused kernel K2
+    (``kernels/depthwise.py``) at inference, under the JAX package's
+    condition: eval mode, stride 1 and C_in % 128 == 0. The parameters are
+    the same either way.
+    """
 
     def __init__(self, in_features: int, features: int, strides=1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
         super().__init__()
+        self.strides = tuple(strides) if isinstance(strides, (tuple, list)) else (strides,) * 3
+        self.use_pallas = use_pallas
         self.conv1 = nn.Conv3d(in_features, in_features, 3, stride=strides,
                                padding=1, groups=in_features, bias=False, dtype=dtype)
         self.bn1 = BatchNorm3d(in_features)
         self.conv2 = nn.Conv3d(in_features, features, 1, bias=False, dtype=dtype)
         self.bn2 = BatchNorm3d(features)
 
+    def _dw_weights(self) -> torch.Tensor:
+        """conv1's (C, 1, 3, 3, 3) kernel as (3, 3, 3, C), in the compute dtype."""
+        c = self.conv1.weight.shape[0]
+        return self.conv1.weight.permute(2, 3, 4, 1, 0).reshape(3, 3, 3, c).contiguous()
+
+    def folded_params(self) -> dict:
+        """The block's inference parameters for the fused tail kernel (K3)."""
+        dw_gamma, dw_beta = self.bn1.folded()
+        pw_gamma, pw_beta = self.bn2.folded()
+        cout, cin = self.conv2.weight.shape[:2]
+        return {
+            "dw_w": self._dw_weights(),
+            "dw_gamma": dw_gamma, "dw_beta": dw_beta,
+            "pw_w": self.conv2.weight.reshape(cout, cin).t().contiguous(),
+            "pw_gamma": pw_gamma, "pw_beta": pw_beta,
+            "stride": self.strides[0],
+        }
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
+        fused = (self.use_pallas and not self.training and self.strides == (1, 1, 1)
+                 and self.conv1.in_channels % 128 == 0)
+        if fused:
+            gamma, beta = self.bn1.folded()
+            x = fused_depthwise_bn_relu_cuda(
+                x.contiguous(memory_format=torch.channels_last_3d), self._dw_weights(),
+                gamma, beta,
+            )
+        else:
+            x = torch.relu(self.bn1(self.conv1(x)))
         return torch.relu(self.bn2(self.conv2(x)))

@@ -16,6 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..kernels.tail import fused_tail_cuda
 from .layers import ConvBNReLU, DepthwiseSeparableBlock
 
 # stem_channels, then (channels, n_repeat, stride) groups
@@ -61,9 +62,12 @@ def mobilenet_layer_plan(
 class MobileNetBackbone(nn.Module):
     """Truncated MobileNet-3D tower returning {layer index: feature map}.
 
-    ``use_pallas`` and ``use_pallas_tail`` select the fused depthwise and
-    fused-tail kernels in the JAX package; their Hopper kernels are not
-    ported yet, so asking for them raises.
+    ``use_pallas`` runs the depthwise half of eligible blocks on the fused
+    kernel K2 (see ``DepthwiseSeparableBlock``). ``use_pallas_tail`` runs
+    every block past the first wanted feature map as the fused tail K3
+    (``kernels/tail.py``) at inference, under the JAX package's condition
+    (``mobilenet.py:108-123``). The tail's blocks stay in ``features``, so
+    the ``state_dict`` is the same whatever the flags.
     """
 
     def __init__(
@@ -78,25 +82,50 @@ class MobileNetBackbone(nn.Module):
         use_pallas_tail: bool = False,
     ):
         super().__init__()
-        if use_pallas or use_pallas_tail:
-            raise NotImplementedError(
-                "use_pallas / use_pallas_tail need the fused depthwise (K2) and "
-                "fused-tail (K3) kernels, which ROADMAP slice 2 ports"
-            )
         self.feature_layers = tuple(feature_layers)
         plan = mobilenet_layer_plan(config_name, width_mult, cube, max(self.feature_layers))
         layers, c_in = [], in_channels
         for spec in plan:
-            cls = ConvBNReLU if spec["kind"] == "conv_bn" else DepthwiseSeparableBlock
-            layers.append(cls(c_in, spec["features"], spec["strides"], dtype=dtype))
+            if spec["kind"] == "conv_bn":
+                layers.append(ConvBNReLU(c_in, spec["features"], spec["strides"], dtype=dtype))
+            else:
+                layers.append(DepthwiseSeparableBlock(c_in, spec["features"], spec["strides"],
+                                                      dtype=dtype, use_pallas=use_pallas))
             c_in = spec["features"]
         self.features = nn.ModuleList(layers)
 
+        self.tail_from = min(self.feature_layers) + 1
+        tail_specs = plan[self.tail_from:]
+        self.fuse_tail = (
+            use_pallas_tail
+            and len(tail_specs) > 0
+            # a wanted feature map must lie in the tail, else the tail is dead
+            and any(i >= self.tail_from for i in self.feature_layers)
+            and all(s["kind"] == "dw_block" for s in tail_specs)
+            and all(s["features"] % 128 == 0 for s in tail_specs)
+            and all(len(set(s["strides"])) == 1 for s in tail_specs)
+        )
+
     def forward(self, x: torch.Tensor) -> dict:
         wanted = set(self.feature_layers)
+        fuse_tail = self.fuse_tail and not self.training
+        head = self.features[: self.tail_from] if fuse_tail else self.features
         features = {}
-        for i, layer in enumerate(self.features):
+        for i, layer in enumerate(head):
             x = layer(x)
             if i in wanted:
                 features[i] = x
+        if fuse_tail:
+            if x.shape[1] % 128 != 0:
+                raise ValueError(
+                    "use_pallas_tail needs lane-aligned tail input channels; "
+                    f"got {x.shape[1]} (width_mult too small?)"
+                )
+            tail = [layer.folded_params() for layer in self.features[self.tail_from:]]
+            emitted = sorted(i for i in wanted if i >= self.tail_from)
+            outs = fused_tail_cuda(
+                x.contiguous(memory_format=torch.channels_last_3d), tail,
+                [i - self.tail_from for i in emitted],
+            )
+            features.update(zip(emitted, outs))
         return features

@@ -64,8 +64,8 @@ class SSD3DConfig:
     focal_gamma: float = 0.0
     focal_alpha: float = 0.25
     use_l2_rescale: bool = False
-    use_pallas: bool = False  # fused depthwise kernel (K2): not ported yet
-    use_pallas_tail: bool = False  # fused tail kernel (K3): not ported yet
+    use_pallas: bool = False  # fused depthwise kernel K2 (kernels/depthwise.py), inference
+    use_pallas_tail: bool = False  # fused tail kernel K3 (kernels/tail.py), inference
     remat: bool = False  # training memory option; no effect in eval
     dtype: str = "float32"  # or "bfloat16"
     init_scheme: str = "torch"

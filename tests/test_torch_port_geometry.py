@@ -139,9 +139,16 @@ def test_detector_defaults_to_the_card():
         Detector(SSD3DConfig.create(input_size=(32, 32, 32)))
 
 
-def test_pallas_flags_raise_until_ported():
+def test_pallas_flags_keep_the_state_dict():
+    """use_pallas / use_pallas_tail change the compute path only: the model
+    builds with each flag and has the same state_dict keys and shapes."""
     from mslesions3d_tpu_torch.models.ssd3d import SSD3D
 
-    for flag in ("use_pallas", "use_pallas_tail"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            SSD3D(SSD3DConfig.create(input_size=(32, 32, 32), **{flag: True}))
+    def schema(**flags):
+        model = SSD3D(SSD3DConfig.create(input_size=(32, 32, 32), **flags))
+        return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+    plain = schema()
+    for flags in ({"use_pallas": True}, {"use_pallas_tail": True},
+                  {"use_pallas": True, "use_pallas_tail": True}):
+        assert schema(**flags) == plain
