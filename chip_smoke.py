@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
 1. device: the card's name and power limit; TF32 off for convs and matmuls.
 2. build: nvcc builds every CUDA kernel of the served paths from ``csrc/``
    (K1 NMS, K2 fused depthwise, K3 fused tail), all three at once, and
-   ptxas's register, shared-memory and spill lines are printed.
+   ptxas's register, shared-memory and spill lines are printed; the tensor-
+   core instructions (HMMA) in the built K3 library's SASS are counted per
+   kernel function (cuobjdump -sass): the bf16 product must reach them.
 3. K1 (greedy 3D NMS) against its plain torch version on the card, with
    exact equality of the keep masks, on synthetic cases and on the real
    candidate sets of the 96^3 model. K2 against its plain version on the
@@ -18,8 +20,9 @@ Phases (any failure exits non-zero and prints no result line):
    batch 8) and at depths 1-3, in bf16 and float32: at most one ulp of the
    dtype (the design aims at bit equality; mismatches are counted). K3
    against its plain version on the headline tail (layers 4-7) and the real
-   layer-3 output at batch 8 and 32, in bf16, and at batch 8 once more with
-   the BN statistics calibrated on seeded volumes (maps of unit scale).
+   layer-3 output at batch 8 and 32, in bf16, at batch 8 once more with
+   the BN statistics calibrated on seeded volumes (maps of unit scale), and
+   on a seeded 24^3 input, which takes K3's per-block variant.
 4. the slices, each with the launch counts set to 0 just before it and read
    just after: a ``Detector`` at the bench's headline configuration (96^3,
    bf16, full width, random weights from a seed) serves requests of 1, 3
@@ -32,7 +35,9 @@ Phases (any failure exits non-zero and prints no result line):
    the card agrees with the CPU's, with and without the flags.
 5. times on the card: K1, K2 and K3 beside their plain versions and bounds
    (and K2 beside the cuDNN conv + BN + ReLU it replaces), each as device
-   time (torch.profiler) and per call (CUDA events), the detect path
+   time (torch.profiler) and per call (CUDA events), the device time split
+   by kernel function (K1's mask and walk launches, K3's kernel) and K3's
+   by block (chain prefixes at batch 8), the detect path
    for the four flag settings, end-to-end volumes/s at batch 1, 8 and 32 on
    the default and the fused path, and torch.profiler breakdowns of the
    device time by kernel with the device's idle share.
@@ -54,10 +59,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from mslesions3d_tpu_torch.kernels.build import build
+from mslesions3d_tpu_torch.kernels.build import build, find_nvcc
 from mslesions3d_tpu_torch.kernels.depthwise import depthwise_bn_relu, fused_depthwise_bn_relu_cuda
 from mslesions3d_tpu_torch.kernels.nms import greedy_nms, greedy_nms_cuda
-from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, tail_reference
+from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, plan_tail, tail_reference
 from mslesions3d_tpu_torch.models.ssd3d import SSD3DConfig
 from mslesions3d_tpu_torch.ops.nms import detect_objects, nms_candidates, select_detections
 from mslesions3d_tpu_torch.serving import Detector, RequestBatcher
@@ -118,9 +123,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean device ms per call of the kernels fn launches: the sum of their
-    durations in a torch.profiler trace, host gaps excluded."""
+def kernel_name(key: str) -> str:
+    """A profiler row's kernel function, without namespace and arguments."""
+    return key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+
+
+def device_ms(fn, iters: int) -> tuple[float, dict]:
+    """Mean device ms per call of the kernels fn launches, in total and by
+    kernel function: their durations in a torch.profiler trace, host gaps
+    excluded."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -129,7 +140,25 @@ def device_ms(fn, iters: int) -> float:
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     check(rows, "the profiler saw no kernel on the card")
-    return sum(e.self_device_time_total for e in rows) / iters / 1e3
+    split = {}
+    for e in rows:
+        name = kernel_name(e.key)
+        split[name] = split.get(name, 0.0) + e.self_device_time_total / iters / 1e3
+    return sum(split.values()), split
+
+
+def hmma_counts(library) -> dict:
+    """Tensor-core (HMMA) instructions per kernel function in a library's SASS."""
+    sass = subprocess.run([str(find_nvcc().with_name("cuobjdump")), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    counts, function = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            function = line.split("Function : ")[1].strip()
+            counts[function] = 0
+        elif function is not None and "HMMA" in line:
+            counts[function] += 1
+    return counts
 
 
 def ulp(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -428,6 +457,12 @@ def main() -> int:
         for line in build_log.splitlines():
             if any(k in line for k in ("Compiling entry", "Used", "spill", "smem")):
                 log(f"  [{name}] " + line.strip())
+    hmma = hmma_counts(built["tail"][0])
+    for function, count in hmma.items():
+        log(f"  [tail] HMMA instructions in {function}: {count}")
+    hmma_total = sum(hmma.values())
+    check(all(count > 0 for f, count in hmma.items() if "cluster" in f or "mma" in f)
+          and hmma_total > 0, "the K3 library's bf16 kernels have no tensor-core instruction")
 
     # 3. K1 against its plain version on synthetic cases
     rng = np.random.default_rng(0)
@@ -503,6 +538,14 @@ def main() -> int:
         err, shares = compare_tail("batch 8, BN calibrated", x, cal_tail, (1, 3))
         tail_err[8] = max(tail_err[8], err)
 
+        # a 24^3 input does not fit a cluster: K3's per-block tensor-core variant
+        big = torch.randn((1, 24, 24, 24, 128), generator=edge_rng, device="cuda")
+        big = big.to(config.compute_dtype).permute(0, 4, 1, 2, 3)
+        specs = [(*layer["pw_w"].shape, int(layer["stride"])) for layer in tail_layers]
+        check(plan_tail(big.dtype, big.shape, specs).variant == "block_mma",
+              "the 24^3 input should take K3's per-block variant")
+        compare_tail("24^3, per-block variant", big, tail_layers, (1, 3))
+
     # 4. the slices
     host_rng = np.random.default_rng(1)
     requests = [host_rng.standard_normal((n, *config.input_size, 1), dtype=np.float32)
@@ -520,6 +563,9 @@ def main() -> int:
         f"K1 {k1_fused}, K2 {k2_fused}, K3 {k3_fused}")
     check(min(k1_fused, k2_fused, k3_fused) > 0,
           "the fused served path did not launch every kernel (K1, K2, K3)")
+    # K1 launches once per forward, so this is K3's launches per forward
+    log(f"K3 launches per forward on the fused served path: {k3_fused / k1_fused:g}")
+    check(k3_fused <= 2 * k1_fused, "K3 launched more than 2 kernels per forward")
     log(f"detections per volume: {check_served(requests, served_fused, config).tolist()}")
 
     kw = dict(n_classes=config.n_classes, top_k=config.top_k)
@@ -600,10 +646,17 @@ def main() -> int:
                        plain=(partial(depthwise_bn_relu, x, w, g, bt), 10),
                        unfused=(partial(unfused_depthwise, blocks[layer], x), 50))
         for b, x in tail_x.items():
+            plan = plan_tail(x.dtype, x.shape, specs)
+            log(f"K3 plan at batch {b}: {plan.variant} kernel, {plan.launches} launch(es) a "
+                f"call, {plan.smem:,} bytes of shared memory per CTA")
             time_calls(f"K3 batch {b} {tuple(x.shape)} bf16, layers 4-7", *tail_bound(
                 x, tail_layers, (1, 3)),
                 kernel=(partial(fused_tail_cuda, x, tail_layers, (1, 3)), 50),
                 plain=(partial(tail_reference, x, tail_layers, (1, 3)), 10))
+        time_calls(f"K3 per-block variant {tuple(big.shape)} bf16, layers 4-7",
+                   *tail_bound(big, tail_layers, (1, 3)),
+                   kernel=(partial(fused_tail_cuda, big, tail_layers, (1, 3)), 20),
+                   plain=(partial(tail_reference, big, tail_layers, (1, 3)), 5))
     log("no PyTorch call computes 3D greedy NMS, a depthwise conv with its BN and ReLU, or a "
         "chain of depthwise-separable blocks: library_ms is null for K1, K2 and K3")
 
@@ -648,12 +701,23 @@ def main() -> int:
     with torch.inference_mode():
         for key, t in timed.items():
             for field, (fn, n) in t.pop("fns").items():
-                t[f"{field}_ms"] = device_ms(fn, iters=n)
+                t[f"{field}_ms"], split = device_ms(fn, iters=n)
+                if field == "kernel":
+                    t["split"] = split
+                    log(f"{key}: device ms per call by kernel function: " + ", ".join(
+                        f"{name} {ms:.4f}" for name, ms in split.items()) + f" [{card}]")
             unfused = (f", cuDNN depthwise conv + BN + ReLU {t['unfused_ms']:.4f} ms "
                        f"({t['unfused_call_ms']:.4f} per call)" if "unfused_ms" in t else "")
             log(f"{key}: kernel {t['kernel_ms']:.4f} ms device time ({t['kernel_call_ms']:.4f} "
                 f"ms per call), plain {t['plain_ms']:.4f} ms ({t['plain_call_ms']:.4f} per "
                 f"call){unfused}, bound {t['bound_ms']:.5f} ms by {t['bound_by']} [{card}]")
+        # K3's device time by chain prefix at batch 8: the cost of each block
+        prefix_ms = [device_ms(partial(fused_tail_cuda, tail_x[8], tail_layers[:d], (d - 1,)),
+                               iters=20)[0] for d in range(1, len(tail_layers) + 1)]
+        log("K3 at batch 8, device ms by chain prefix (layers 4..4+d-1): "
+            + ", ".join(f"{ms:.4f}" for ms in prefix_ms) + "; per block: "
+            + ", ".join(f"{b - a:.4f}" for a, b in zip([0.0] + prefix_ms, prefix_ms))
+            + f" [{card}]")
     x = volumes(32).to(config.compute_dtype)
     for name in ("off", "both"):
         profile_detect(name, detectors[name], x, card)
@@ -675,6 +739,9 @@ def main() -> int:
         "bound_ms": timed["K1 N=8 K=1000"]["bound_ms"],
         "bound_by": timed["K1 N=8 K=1000"]["bound_by"],
         "library_ms": None,
+        "device_split_ms": timed["K1 N=8 K=1000"]["split"],
+        "ms_n128": timed["K1 N=128 K=1000"]["kernel_ms"],
+        "device_split_ms_n128": timed["K1 N=128 K=1000"]["split"],
         "shape": "N=8 K=1000: the served batch of 8, candidates of the 96^3 model",
     }, {
         "name": "fused_depthwise_bn_relu",
@@ -709,7 +776,16 @@ def main() -> int:
         "bound_ms": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["bound_ms"],
         "bound_by": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["bound_by"],
         "library_ms": None,
-        "shape": "layers 4-7 of the 96^3 model on (8, 128, 12, 12, 12) bf16, 4 launches a call",
+        "device_split_ms": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["split"],
+        "ms_batch32": timed["K3 batch 32 (32, 128, 12, 12, 12) bf16, layers 4-7"]["kernel_ms"],
+        "bound_ms_batch32":
+            timed["K3 batch 32 (32, 128, 12, 12, 12) bf16, layers 4-7"]["bound_ms"],
+        "hmma_in_library": hmma_total,
+        "prefix_ms": prefix_ms,
+        "ms_block_variant_24cubed":
+            timed["K3 per-block variant (1, 128, 24, 24, 24) bf16, layers 4-7"]["kernel_ms"],
+        "shape": "layers 4-7 of the 96^3 model on (8, 128, 12, 12, 12) bf16, 1 launch a call "
+                 "(the cluster kernel)",
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,24 +6,42 @@
 //
 // What bounds it on this card. The work is the IoU of every candidate pair
 // below the row's last valid index (L(L-1)/2 pairs, about 18 float32
-// operations each), then a greedy walk of L steps in score order. The bytes
-// (boxes in, keep out) are tiny, so the pair work bounds the first launch
-// and the walk's chain of dependent steps bounds the second.
+// operations each), then a greedy walk in score order. The bytes (boxes in,
+// keep out) are tiny, so the pair work bounds the first launch, and the
+// walk's chain of dependent steps bounds the second.
 //
 // Design. The TPU kernel keeps a bf16 KxK suppression matrix in VMEM and
 // solves a fixpoint with MXU mat-vecs; at K = 1000 that matrix is 2 MiB, far
 // beyond the 227 KB of shared memory a block can use. Here the matrix is a
 // bitmask of 64-bit words, 8x smaller than bf16:
 //   1. nms_mask_kernel: one block of 64 threads per (row, row block of 64,
-//      column block of 64). Each thread owns one candidate j and writes one
-//      word: bit c set iff i = 64*cb + c > j and IoU(j, i) > t. Blocks below
-//      the diagonal, and blocks whose columns lie past the last valid
-//      candidate, do nothing (the TPU kernel's data-adaptive bound). Every
-//      block on the card works in parallel; the words go to a scratch tensor.
-//   2. nms_scan_kernel: one block per row stages the row's words in shared
-//      memory (128 KB at K = 1000), then one warp walks the candidates in
-//      order. Lane w holds word w of the "removed" bitset; a kept candidate
-//      ORs its mask row into it. Words below the diagonal are never read.
+//      column block of 64) on or above the diagonal. Each thread owns one candidate j and writes one
+//      word: bit c set iff i = 64*cb + c > j and IoU(j, i) > t. It first
+//      marks the columns whose boxes overlap its own on all three axes (a
+//      cheap test that never misses a bit when t >= 0) and takes the exact
+//      IoU only of those. A block on the diagonal also writes its 64x64 bits
+//      transposed (diag_t: word i holds the j < i of the same word that
+//      suppress i). Blocks whose columns lie past the last valid candidate
+//      do nothing (the TPU kernel's data-adaptive bound).
+//   2. nms_walk_kernel: one block of 4 warps per row; warp 0 resolves 64
+//      candidates (one word) at a time. The "removed" bitset has at most 32
+//      words, one per lane (K <= 2048). For word w:
+//      a. the word's live candidates are the valid ones no earlier kept
+//         candidate removed;
+//      b. lane l holds the transposed diagonal words of candidates 64w+l and
+//         64w+32+l; the greedy order inside the word is the unique fixpoint
+//         of kept = live & ~(suppressed by kept), found with two ballots per
+//         round from kept = live. Only these rounds are sequential, and they
+//         are as many as the longest suppression chain inside the word;
+//      c. the 4 warps OR 16 kept rows each into the later words' removed
+//         bits, lane c taking word c: independent shared-memory loads, not
+//         a chain, then one shared-memory atomicOr per lane.
+//      All 4 warps stage the rows and the diagonal block of words w+1 and
+//      w+2 into shared memory with 16-byte cp.async while word w resolves
+//      (three buffers, 26 KB at K = 1000; mask rows are padded to an even
+//      number of words so every copy is aligned). The walk stops at the
+//      row's last valid candidate. Its shared-memory limit is raised once
+//      per process, not on every call.
 // The answer of greedy NMS is unique, so this gives the fixpoint's result.
 //
 // Exactness. The keep mask must equal the plain torch version bit for bit,
@@ -39,8 +57,9 @@
 
 namespace {
 
-constexpr int kWord = 64;          // candidates per mask word
-constexpr int kScanThreads = 256;  // threads that stage a row for the scan
+constexpr int kWord = 64;      // candidates per mask word
+constexpr int kMaxWords = 32;  // one removed word per lane of the walking warp
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
@@ -61,22 +80,30 @@ __device__ __forceinline__ float volume(const float* lo, const float* hi) {
 
 __global__ void nms_mask_kernel(const float* __restrict__ boxes,
                                 const bool* __restrict__ valid,
-                                unsigned long long* __restrict__ mask, int k, int nw,
-                                float t) {
-  const int n = blockIdx.x, rb = blockIdx.y, cb = blockIdx.z;
-  if (cb < rb) return;  // every pair here has j > i
+                                unsigned long long* __restrict__ mask,
+                                unsigned long long* __restrict__ diag_t, int k, int nw,
+                                int nwp, float t) {
+  // blockIdx.y enumerates the blocks on and above the diagonal, row by row
+  const int n = blockIdx.x;
+  int rb = 0, cb = blockIdx.y;
+  while (cb >= nw - rb) cb -= nw - rb++;
+  cb += rb;
   const int tid = threadIdx.x;
   const bool* v = valid + static_cast<size_t>(n) * k;
 
   // The columns of this block matter only if a valid candidate lies at or
   // past the first of them: a bound on the data, as in the TPU kernel.
+  // Valid candidates are usually a prefix, so the first chunk decides.
   bool any = false;
-  for (int i = cb * kWord + tid; i < k; i += kWord) any |= v[i];
-  if (!__syncthreads_or(any)) return;
+  for (int i0 = cb * kWord; i0 < k && !any; i0 += kWord) {
+    any = __syncthreads_or(i0 + tid < k && v[i0 + tid]);
+  }
+  if (!any) return;
 
   __shared__ float col_lo[3][kWord];
   __shared__ float col_hi[3][kWord];
   __shared__ float col_vol[kWord];
+  __shared__ unsigned long long diag_rows[kWord];
   const float* b = boxes + static_cast<size_t>(n) * k * 6;
   const int ci = cb * kWord + tid;
   if (ci < k) {
@@ -92,106 +119,212 @@ __global__ void nms_mask_kernel(const float* __restrict__ boxes,
   __syncthreads();
 
   const int j = rb * kWord + tid;
-  if (j >= k) return;
-  float lo[3], hi[3];
-  for (int d = 0; d < 3; ++d) {
-    lo[d] = b[j * 6 + d];
-    hi[d] = b[j * 6 + 3 + d];
-  }
-  const float vol_j = volume(lo, hi);
-  const int ncol = min(kWord, k - cb * kWord);
   unsigned long long bits = 0ull;
-  for (int c = (cb == rb) ? tid + 1 : 0; c < ncol; ++c) {
-    float dims[3];
+  if (j < k) {
+    float lo[3], hi[3];
     for (int d = 0; d < 3; ++d) {
-      dims[d] = clamp_min0(
-          __fsub_rn(nan_min(hi[d], col_hi[d][c]), nan_max(lo[d], col_lo[d][c])));
+      lo[d] = b[j * 6 + d];
+      hi[d] = b[j * 6 + 3 + d];
     }
-    const float inter = __fmul_rn(__fmul_rn(dims[0], dims[1]), dims[2]);
-    if (inter == 0.f && t >= 0.f) continue;
-    const float uni = __fsub_rn(__fadd_rn(vol_j, col_vol[c]), inter);
-    if (__fdiv_rn(inter, uni) > t) bits |= 1ull << c;
+    const float vol_j = volume(lo, hi);
+    const int ncol = min(kWord, k - cb * kWord);
+    const int c0 = (cb == rb) ? tid + 1 : 0;
+    // Candidates: with t >= 0 a bit needs IoU > 0, so a positive overlap
+    // along each axis, and on non-NaN values the plain fminf/fmaxf give the
+    // same differences as the NaN-propagating ones. NaN pairs never set a
+    // bit, so skipping them is exact. With t < 0 every pair is a candidate.
+    unsigned long long cand = 0ull;
+    for (int c = c0; c < ncol; ++c) {
+      bool overlap = t < 0.f;
+      const float d0 = __fsub_rn(fminf(hi[0], col_hi[0][c]), fmaxf(lo[0], col_lo[0][c]));
+      const float d1 = __fsub_rn(fminf(hi[1], col_hi[1][c]), fmaxf(lo[1], col_lo[1][c]));
+      const float d2 = __fsub_rn(fminf(hi[2], col_hi[2][c]), fmaxf(lo[2], col_lo[2][c]));
+      overlap |= d0 > 0.f && d1 > 0.f && d2 > 0.f;
+      cand |= static_cast<unsigned long long>(overlap) << c;
+    }
+    while (cand) {
+      const int c = __ffsll(static_cast<long long>(cand)) - 1;
+      cand &= cand - 1;
+      float dims[3];
+      for (int d = 0; d < 3; ++d) {
+        dims[d] = clamp_min0(
+            __fsub_rn(nan_min(hi[d], col_hi[d][c]), nan_max(lo[d], col_lo[d][c])));
+      }
+      const float inter = __fmul_rn(__fmul_rn(dims[0], dims[1]), dims[2]);
+      if (inter == 0.f && t >= 0.f) continue;
+      const float uni = __fsub_rn(__fadd_rn(vol_j, col_vol[c]), inter);
+      if (__fdiv_rn(inter, uni) > t) bits |= 1ull << c;
+    }
+    mask[(static_cast<size_t>(n) * k + j) * nwp + cb] = bits;
   }
-  mask[(static_cast<size_t>(n) * k + j) * nw + cb] = bits;
+  if (cb != rb) return;  // the same for the whole block
+
+  // the diagonal block transposed: thread tid gathers bit tid of every row
+  diag_rows[tid] = bits;
+  __syncthreads();
+  unsigned long long col = 0ull;
+  for (int r = 0; r < kWord; ++r) col |= ((diag_rows[r] >> tid) & 1ull) << r;
+  diag_t[(static_cast<size_t>(n) * nwp + cb) * kWord + tid] = col;
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-nms_scan_kernel(const bool* __restrict__ valid,
-                const unsigned long long* __restrict__ mask, bool* __restrict__ keep,
-                int k, int nw) {
-  extern __shared__ unsigned long long rows[];  // [k * nw] words, then k flags
-  unsigned char* flags = reinterpret_cast<unsigned char*>(rows + static_cast<size_t>(k) * nw);
-  __shared__ int last;  // index of the last valid candidate + 1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
 
-  const int n = blockIdx.x, tid = threadIdx.x;
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int kWalkThreads = 128;  // 4 warps stage and OR rows; warp 0 resolves
+constexpr int kStages = 3;         // word w resolves while words w+1 and w+2 land
+
+// Shared memory of the walk for rows of nwp (even) words: kStages buffers of
+// 64 rows, then kStages diagonal blocks of 64 words.
+size_t walk_smem_bytes(int nwp) {
+  return static_cast<size_t>(kStages) * kWord * (nwp + 1) * sizeof(unsigned long long);
+}
+
+__global__ void __launch_bounds__(kWalkThreads)
+nms_walk_kernel(const bool* __restrict__ valid, const unsigned long long* __restrict__ mask,
+                const unsigned long long* __restrict__ diag_t, bool* __restrict__ keep, int k,
+                int nwp) {
+  extern __shared__ __align__(16) unsigned long long smem[];
+  unsigned long long* rows = smem;                           // [kStages][kWord][nwp]
+  unsigned long long* diag = smem + kStages * kWord * nwp;  // [kStages][kWord]
+  __shared__ unsigned vbits[2 * kMaxWords];                  // valid bits, 32 per chunk
+  const int n = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool* v = valid + static_cast<size_t>(n) * k;
-  const unsigned long long* m = mask + static_cast<size_t>(n) * k * nw;
+  const unsigned long long* m = mask + static_cast<size_t>(n) * k * nwp;
+  const unsigned long long* dt = diag_t + static_cast<size_t>(n) * (nwp * kWord);
   bool* out = keep + static_cast<size_t>(n) * k;
 
-  if (tid == 0) last = 0;
-  __syncthreads();
-  int my_last = 0;
-  for (int i = tid; i < k; i += blockDim.x) {
-    if (v[i]) my_last = i + 1;
+  // the valid bits of chunk c (candidates 32c ..) into vbits[c]
+  constexpr int kPerWarp = 2 * kMaxWords / (kWalkThreads / 32);
+  bool vals[kPerWarp];
+#pragma unroll
+  for (int u = 0; u < kPerWarp; ++u) {
+    const int i = (warp + u * (kWalkThreads / 32)) * 32 + lane;
+    vals[u] = i < k && v[i];
   }
-  atomicMax(&last, my_last);
+#pragma unroll
+  for (int u = 0; u < kPerWarp; ++u) {
+    const unsigned bal = __ballot_sync(kFull, vals[u]);
+    if (lane == 0) vbits[warp + u * (kWalkThreads / 32)] = bal;
+  }
   __syncthreads();
-  const int count = last;
-  const int words = (count + kWord - 1) / kWord;  // <= nw <= 32
+  // count = index of the last valid candidate + 1, the same in every warp
+  const unsigned lo_nz = __ballot_sync(kFull, vbits[lane] != 0u);
+  const unsigned hi_nz = __ballot_sync(kFull, vbits[32 + lane] != 0u);
+  const int last_chunk = hi_nz ? 63 - __clz(static_cast<int>(hi_nz))
+                               : (lo_nz ? 31 - __clz(static_cast<int>(lo_nz)) : -1);
+  const int count =
+      last_chunk < 0 ? 0 : last_chunk * 32 + 32 - __clz(static_cast<int>(vbits[last_chunk]));
+  const int words = (count + kWord - 1) / kWord;
+  // word w of the removed bitset; invalid candidates count as removed
+  __shared__ unsigned long long removed[kMaxWords];
+  __shared__ unsigned long long kept_word;
+  if (tid < kMaxWords) {
+    removed[tid] = ~(static_cast<unsigned long long>(vbits[2 * tid]) |
+                     (static_cast<unsigned long long>(vbits[2 * tid + 1]) << 32));
+  }
 
-  // Stage the words the walk can read: rows j < count, words on or above
-  // the diagonal and below `words`. The mask kernel wrote all of them.
-  for (int idx = tid; idx < count * words; idx += blockDim.x) {
-    const int j = idx / words, w = idx - j * words;
-    if (w >= j / kWord) rows[j * words + w] = m[static_cast<size_t>(j) * nw + w];
-  }
-  for (int i = tid; i < count; i += blockDim.x) flags[i] = v[i];
-  for (int i = count + tid; i < k; i += blockDim.x) out[i] = false;
-  __syncthreads();
+  // Rows of word w (up to `count`), words c0 = (w+1) & ~1 .. nwp-1 of each,
+  // and the word's diagonal block, into buffer w % kStages.
+  auto stage = [&](int w) {
+    if (w < words) {
+      const int sb = w % kStages;
+      const int c0 = (w + 1) & ~1, pairs = (nwp - c0) / 2, nr = min(kWord, count - w * kWord);
+      unsigned long long* dst = rows + sb * kWord * nwp;
+      const unsigned long long* src = m + static_cast<size_t>(w) * kWord * nwp;
+      // thread -> (row tid / 16 + 8i, word pair tid % 16): at most 16 pairs
+      const int c = c0 + 2 * (tid % 16);
+      for (int r = tid / 16; tid % 16 < pairs && r < nr; r += kWalkThreads / 16) {
+        cp_async16(dst + r * nwp + c, src + static_cast<size_t>(r) * nwp + c);
+      }
+      if (tid < kWord / 2) cp_async16(diag + sb * kWord + 2 * tid, dt + w * kWord + 2 * tid);
+    }
+    cp_async_commit();  // one group per word, empty or not
+  };
 
-  if (tid >= 32) return;
-  const int lane = tid;
-  unsigned long long removed = 0ull;  // bits of candidates 64*lane .. 64*lane+63
-  for (int i = 0; i < count; ++i) {
-    const int w = i / kWord;
-    const unsigned long long word = __shfl_sync(0xffffffffu, removed, w);
-    const bool kept = flags[i] && !((word >> (i % kWord)) & 1ull);
-    if (kept && lane >= w && lane < words) removed |= rows[i * words + lane];
-    if (lane == 0) out[i] = kept;
+  stage(0);
+  stage(1);
+  for (int w = 0; w < words; ++w) {
+    cp_async_wait<1>();  // word w's group has landed
+    __syncthreads();     // its rows, and `removed`, are visible; buffer (w + 2) % 3 is free
+    stage(w + 2);
+    const int sb = w % kStages;
+    if (warp == 0) {
+      // b. the word's greedy order: fixpoint rounds from kept = live
+      const unsigned long long col_lo = diag[sb * kWord + lane];
+      const unsigned long long col_hi = diag[sb * kWord + 32 + lane];
+      const unsigned long long live = ~removed[w];
+      unsigned long long kept = live;
+      while (true) {
+        const bool lo = ((live >> lane) & 1ull) && !(col_lo & kept);
+        const bool hi = ((live >> (lane + 32)) & 1ull) && !(col_hi & kept);
+        const unsigned long long next =
+            static_cast<unsigned long long>(__ballot_sync(kFull, lo)) |
+            (static_cast<unsigned long long>(__ballot_sync(kFull, hi)) << 32);
+        if (next == kept) break;
+        kept = next;
+      }
+      if (lane == 0) kept_word = kept;
+      const int i = w * kWord + lane;
+      if (i < k) out[i] = (kept >> lane) & 1ull;
+      if (i + 32 < k) out[i + 32] = (kept >> (lane + 32)) & 1ull;
+    }
+    __syncthreads();  // kept_word is visible
+
+    // c. warp q ORs kept rows 16q .. 16q+15 of word w into the later words'
+    // removed bits; lane c takes word c
+    const unsigned long long kept = kept_word;
+    if (lane > w && lane < words) {
+      const unsigned long long* src = rows + (sb * kWord + 16 * warp) * nwp + lane;
+      const unsigned long long bits = kept >> (16 * warp);
+      unsigned long long acc = 0ull;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) acc |= src[r * nwp] & (0ull - ((bits >> r) & 1ull));
+      if (acc) atomicOr(&removed[lane], acc);  // rows past `count` were not staged; kept bit 0
+    }
   }
+  for (int i = words * kWord + tid; i < k; i += kWalkThreads) out[i] = false;
 }
 
-// Shared memory the scan kernel needs for a row of k candidates (the
-// wrapper's scan_smem_bytes).
-size_t scan_smem_bytes(int k) {
-  const size_t nw = (static_cast<size_t>(k) + kWord - 1) / kWord;
-  return static_cast<size_t>(k) * nw * sizeof(unsigned long long) + static_cast<size_t>(k);
-}
+bool g_walk_opted_in = false;  // the attribute is set once per process
 
 }  // namespace
 
 extern "C" {
 
-// boxes (n, k, 6) float32, valid (n, k) bool, mask (n, k, ceil(k/64)) 64-bit
-// scratch, keep (n, k) bool; all contiguous on the current device. Launches
-// on `stream` and does not synchronise. Returns a cudaError_t.
-int msl_greedy_nms(const void* boxes, const void* valid, void* mask, void* keep, int n,
-                   int k, float max_overlap, void* stream) {
-  const int nw = (k + kWord - 1) / kWord;
-  if (n <= 0 || k <= 0 || nw > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = scan_smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+// boxes (n, k, 6) float32, valid (n, k) bool, mask (n, k, nwp) and diag_t
+// (n, nwp, 64) 64-bit scratch with nwp = ceil(k/64) rounded up to even,
+// keep (n, k) bool; all contiguous on the current device. Launches on
+// `stream` and does not synchronise. Returns a cudaError_t.
+int msl_greedy_nms(const void* boxes, const void* valid, void* mask, void* diag_t, void* keep,
+                   int n, int k, float max_overlap, void* stream) {
+  const int nw = (k + kWord - 1) / kWord, nwp = (nw + 1) & ~1;
+  if (n <= 0 || k <= 0 || nw > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (!g_walk_opted_in) {
+    err = cudaFuncSetAttribute(nms_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(walk_smem_bytes(kMaxWords)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_walk_opted_in = true;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nms_mask_kernel<<<dim3(n, nw, nw), kWord, 0, s>>>(
+  nms_mask_kernel<<<dim3(n, nw * (nw + 1) / 2), kWord, 0, s>>>(
       static_cast<const float*>(boxes), static_cast<const bool*>(valid),
-      static_cast<unsigned long long*>(mask), k, nw, max_overlap);
+      static_cast<unsigned long long*>(mask), static_cast<unsigned long long*>(diag_t), k, nw,
+      nwp, max_overlap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_scan_kernel<<<n, kScanThreads, smem, s>>>(
+  nms_walk_kernel<<<n, kWalkThreads, walk_smem_bytes(nwp), s>>>(
       static_cast<const bool*>(valid), static_cast<const unsigned long long*>(mask),
-      static_cast<bool*>(keep), k, nw);
+      static_cast<const unsigned long long*>(diag_t), static_cast<bool*>(keep), k, nwp);
   return static_cast<int>(cudaGetLastError());
 }
 

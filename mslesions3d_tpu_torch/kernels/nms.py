@@ -9,11 +9,15 @@ The kernel (``csrc/nms.cu``) is bounded on the card by the IoU of every
 candidate pair below the row's last valid index, and by the greedy walk's
 chain of dependent steps. Its design: a first launch spreads the pair work
 over every SM and writes a bitmask of 64-bit words (bit i of row j: IoU(j,
-i) > t and j < i), skipping the blocks past the last valid candidate as the
-TPU kernel does; a second launch stages each row's words in shared memory
-and walks them with one warp. The TPU design's bf16 KxK matrix in fast
-memory does not fit a block's shared memory at K = 1000; the bitmask is 8x
-smaller. The source has the details.
+i) > t and j < i), and each diagonal 64x64 block once more transposed,
+skipping the blocks past the last valid candidate as the TPU kernel does; a
+second launch walks each row with one block, a 64-candidate word at a time:
+one warp's ballots resolve the greedy order inside the word, then four
+warps OR the kept rows into the later words, rows that were staged into
+shared memory while the words before resolved. The TPU design's bf16 KxK
+matrix in fast memory does not fit a block's shared memory at K = 1000; the
+bitmask is 8x smaller, and the walk holds only three words' rows at a
+time. The source has the details.
 
 :func:`greedy_nms` is the plain version: the same function as a fixpoint
 over a boolean suppression matrix, on any leading batch shape. The wrapper
@@ -30,17 +34,15 @@ import torch
 from ..ops.boxes import pairwise_iou
 from .build import load_library
 
-# Shared memory a Hopper block can use (the H100's opt-in maximum), less
-# 1 KB kept for the kernel's static shared memory.
-SMEM_BUDGET = 232_448 - 1024
-# The largest K whose row of mask words fits that budget: 1344 candidates
-# are 21 words of 64 bits, 225,792 bytes, plus 1,344 bytes of flags.
-MAX_K = 1344
+# The walking warp holds one 64-candidate word of the removed bitset per
+# lane: 32 words, 2048 candidates.
+MAX_K = 32 * 64
 
 
-def scan_smem_bytes(k: int) -> int:
-    """Shared memory of the scan launch for rows of k candidates."""
-    return k * (-(-k // 64)) * 8 + k
+def mask_words(k: int) -> int:
+    """Words of 64 bits per mask row: ceil(k / 64), rounded up to even so
+    that every row starts on 16 bytes for the walk's copies."""
+    return -(-k // 128) * 2
 
 
 def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float) -> torch.Tensor:
@@ -69,7 +71,7 @@ def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float) -> 
 def _library() -> ctypes.CDLL:
     lib = load_library("nms")
     lib.msl_greedy_nms.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     lib.msl_greedy_nms.restype = ctypes.c_int
@@ -107,19 +109,21 @@ def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float
     n, k = valid.shape
     if k > MAX_K:
         raise ValueError(
-            f"greedy_nms_cuda: K={k} candidates need {scan_smem_bytes(k):,} bytes of "
-            f"shared memory per row, more than the {SMEM_BUDGET:,} a block can use; "
-            f"K must be <= {MAX_K} (lower top_k)"
+            f"greedy_nms_cuda: K={k} candidates are {-(-k // 64)} words of 64, more than "
+            f"the 32 lanes of the walking warp hold; K must be <= {MAX_K} (lower top_k)"
         )
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
     if n == 0 or k == 0:
         return keep
-    mask = torch.empty((n, k, -(-k // 64)), dtype=torch.int64, device=boxes.device)
+    nwp = mask_words(k)
+    # the mask rows (n, k, nwp), then the transposed diagonal blocks (n, nwp, 64)
+    scratch = torch.empty(n * nwp * (k + 64), dtype=torch.int64, device=boxes.device)
     lib = _library()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.msl_greedy_nms(
-            boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
+            boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+            scratch[n * k * nwp:].data_ptr(), keep.data_ptr(),
             n, k, float(max_overlap), stream,
         )
     if err != 0:

@@ -13,20 +13,30 @@ in ``emit``. It rounds where the TPU kernel rounds:
 - the activations between blocks stay float32;
 - only the emitted maps are rounded to x's dtype.
 
-What bounds it on the card: bytes, and launch latency. At the 96^3
-headline (input (B, 12, 12, 12, 128), layers 4-7) the pointwise products
-are ~64 MFLOP a sample, which the tensor cores would finish in well under a
-microsecond at batch 8, while the input, the emitted maps and ~1 MB of
-weights take a few microseconds to move. The TPU design keeps four whole
-samples and the whole chain in VMEM; one sample's 12^3 x 128 bf16 input
-(442 KB) exceeds a Hopper block's 227 KB of shared memory, so here
-(``csrc/tail.cu``) each block is one launch. A CUDA block computes a tile of
-8 output voxels x 128 output channels: it computes the depthwise result of
-its voxels for every input channel into shared memory, rounded as above,
-multiplies it by ``pw_w`` in its own body with float32 sums, and writes the
-float32 activation (the next block's input, small enough to stay in the
-50 MB L2) and, for an emitted block, the map in x's dtype. ``.launches``
-counts one per block of the chain: 4 per forward at the headline.
+What bounds it on the card: latency. At the 96^3 headline (input (B, 12,
+12, 12, 128), layers 4-7) the pointwise products are ~64 MFLOP a sample,
+which the tensor cores finish in microseconds, and the input, the emitted
+maps and ~1 MB of weights take a few microseconds to move; what costs is
+the chain of dependent steps. ``csrc/tail.cu`` has three kernels, and
+:func:`plan_tail` picks one from the shapes:
+
+- ``cluster`` (bfloat16, when a sample's chain fits a cluster's shared
+  memory, as at the headline): one launch for the whole chain. A cluster of
+  8 CTAs holds one sample; CTA r owns channel slice r of every block's
+  activation for every voxel (in a zero halo, so the depthwise taps need
+  no bounds checks), computes the depthwise of its slice once, and reads
+  the other slices' bf16 depthwise outputs through distributed shared
+  memory for the pointwise product on the tensor cores. Only x is read
+  from memory and only the emitted maps are written.
+- ``block_mma`` (bfloat16, when the chain does not fit): one launch per
+  block. A CTA computes the depthwise of 32 output voxels for every input
+  channel once, then the product on the tensor cores chunk by chunk of 32
+  output channels; the float32 activations between blocks go through memory.
+- ``block_f32`` (float32): one launch per block, the product in float32 on
+  CUDA cores (TF32 would change the function).
+
+``.launches`` counts every launch of any of them: 1 per forward at the
+headline.
 
 :func:`tail_reference` is the plain version. The wrapper uses it for CPU
 tensors only; on a CUDA tensor it launches the kernel or raises. The
@@ -43,15 +53,94 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
 from .build import load_library
 from .depthwise import DTYPES, depthwise_taps
 
-# The kernel keeps the float32 depthwise result of its 8 output voxels for
-# every input channel in at most 48 KB of shared memory.
+# The per-block kernels keep one tile's depthwise result for every input
+# channel in shared memory: 8 voxels x C_in float32 in 48 KB (block_f32),
+# 32 voxels x C_in bf16 beside a C_in x 32 slice of pw_w (block_mma).
 MAX_C_IN = 48 * 1024 // (4 * 8)
+SMEM_MAX = 232_448  # a Hopper block's opt-in maximum of shared memory
+CLUSTER = 8  # CTAs per sample in the cluster kernel (csrc/tail.cu kCluster)
+MAX_CLUSTER_LAYERS = 16  # kMaxLayers
+
+
+@dataclass(frozen=True)
+class TailPlan:
+    """How :func:`fused_tail_cuda` runs a chain (see :func:`plan_tail`).
+
+    ``smem`` is the shared memory of one CTA of the largest launch;
+    ``slices`` (cluster only) each block's (input, output) channel slice
+    width per CTA; ``offsets`` (cluster only) the byte offsets of the CTA's
+    buffers: activation, the two depthwise slices, work (x slice, then A and
+    B), and the total.
+    """
+
+    variant: str  # "cluster", "block_mma" or "block_f32"
+    launches: int
+    smem: int
+    slices: tuple = ()
+    offsets: tuple = ()
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def channel_slices(c: int) -> list:
+    """The [lo, hi) channel range of each CTA of a cluster, for C = c."""
+    s = -(-c // CLUSTER)
+    return [(min(c, r * s), min(c, (r + 1) * s)) for r in range(CLUSTER)]
+
+
+def _cluster_layout(spatial, specs) -> tuple:
+    """(slices, offsets) of the cluster kernel's shared memory per CTA."""
+    act = y = work = 0
+    slices = []
+    dims = tuple(spatial)
+    for i, (cin, cout, stride) in enumerate(specs):
+        dims = tuple(_out_size(n, stride) for n in dims)
+        vout = math.prod(dims)
+        # CTA r owns channels channel_slices(c)[r] = [r * s, (r + 1) * s) & [0, c)
+        s_in, s_out = (channel_slices(c)[0][1] for c in (cin, cout))
+        slices.append((s_in, s_out))
+        if i == 0:  # the x slice, bf16, with a zero halo
+            work = math.prod(n + 2 for n in spatial) * s_in * 2
+        if i + 1 < len(specs):  # the next block's input slice, float32, with a zero halo
+            act = max(act, math.prod(n + 2 for n in dims) * s_out * 4)
+        y = max(y, vout * s_in * 2)  # the depthwise slice, bf16
+        kpad, mpad, npad = _round_up(cin, 16), _round_up(vout, 16), _round_up(s_out, 16)
+        work = max(work, (mpad * (kpad + 8) + kpad * (npad + 8)) * 2)  # A and B
+    offsets = [0]
+    for size in (act, y, y, work):
+        offsets.append(offsets[-1] + _round_up(size, 16))
+    return tuple(slices), tuple(offsets)
+
+
+def _mma_smem(cin: int) -> int:
+    kpad = _round_up(cin, 16)
+    return (32 * (kpad + 8) + kpad * (32 + 8)) * 2
+
+
+def plan_tail(dtype: torch.dtype, shape, specs) -> TailPlan:
+    """Which kernel runs a chain, with how many launches and how much shared memory.
+
+    ``shape`` is x's (B, C, D, H, W); ``specs`` each block's (C_in, C_out,
+    stride). float32 takes ``block_f32``; bfloat16 takes ``cluster`` when the
+    chain has at most 16 blocks and one CTA's buffers fit ``SMEM_MAX``, else
+    ``block_mma``. Pure Python: it runs without a card.
+    """
+    if dtype == torch.float32:
+        return TailPlan("block_f32", len(specs), max(8 * cin * 4 for cin, _, _ in specs))
+    slices, offsets = _cluster_layout(shape[2:], specs)
+    if len(specs) <= MAX_CLUSTER_LAYERS and offsets[-1] <= SMEM_MAX:
+        return TailPlan("cluster", 1, offsets[-1], slices, offsets)
+    return TailPlan("block_mma", len(specs), max(_mma_smem(cin) for cin, _, _ in specs))
 
 
 def _out_size(n: int, stride: int) -> int:
@@ -79,6 +168,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library("tail")
     lib.msl_tail_block.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.msl_tail_block.restype = ctypes.c_int
+    lib.msl_tail_cluster.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+    lib.msl_tail_cluster.restype = ctypes.c_int
     lib.msl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.msl_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -109,8 +202,9 @@ def fused_tail_cuda(x: torch.Tensor, layers, emit) -> list:
     """Run a chain of depthwise-separable blocks; returns the maps named in ``emit``.
 
     x (B, C, D, H, W) float32 or bfloat16 in ``channels_last_3d`` memory.
-    On CUDA tensors this launches one kernel per block of the chain on the
-    current stream, without synchronising, and counts each launch in
+    On CUDA tensors this launches the kernels :func:`plan_tail` picks (one
+    for the whole chain at the headline, else one per block) on the current
+    stream, without synchronising, and counts each launch in
     ``fused_tail_cuda.launches``. On CPU tensors it returns
     :func:`tail_reference`. Anything else raises.
     """
@@ -129,7 +223,7 @@ def fused_tail_cuda(x: torch.Tensor, layers, emit) -> list:
         raise ValueError(f"fused_tail_cuda: emit {sorted(emit)} must name blocks of the "
                          f"{len(layers)}-block chain")
     operands = []
-    b, cin = x.shape[:2]
+    cin = x.shape[1]
     for layer in layers:
         if cin > MAX_C_IN:
             raise ValueError(f"fused_tail_cuda: C_in={cin}; the kernel's shared-memory "
@@ -137,41 +231,79 @@ def fused_tail_cuda(x: torch.Tensor, layers, emit) -> list:
         operands.append(_layer_operands(layer, x, cin))
         cin = operands[-1][3].shape[1]
 
+    specs = [(op[3].shape[0], op[3].shape[1], int(layer["stride"]))
+             for op, layer in zip(operands, layers)]
+    plan = plan_tail(x.dtype, x.shape, specs)
     lib = _library()
-    dtype = DTYPES[x.dtype]
     cur = x.permute(0, 2, 3, 4, 1)  # (B, D, H, W, C) contiguous
-    outs = []
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for i, ((dw_w, dw_g, dw_b, pw_w, pw_g, pw_b), layer) in enumerate(zip(operands, layers)):
-            stride = int(layer["stride"])
-            d_in, h_in, w_in, cin = cur.shape[1:]
-            cout = pw_w.shape[1]
-            shape = (b, _out_size(d_in, stride), _out_size(h_in, stride),
-                     _out_size(w_in, stride), cout)
-            # the float32 activation feeds the next block; an emitted map is
-            # in x's dtype, which for float32 x is that same buffer
-            chain = emitted = None
-            if x.dtype == torch.float32 or i < len(layers) - 1 or i not in emit:
-                chain = torch.empty(shape, dtype=torch.float32, device=x.device)
-            if i in emit:
-                emitted = (chain if x.dtype == torch.float32
-                           else torch.empty(shape, dtype=x.dtype, device=x.device))
-            separate = emitted is not None and emitted is not chain
-            err = lib.msl_tail_block(
-                cur.data_ptr(), dw_w.data_ptr(), dw_g.data_ptr(), dw_b.data_ptr(),
-                pw_w.data_ptr(), pw_g.data_ptr(), pw_b.data_ptr(),
-                chain.data_ptr() if chain is not None else 0,
-                emitted.data_ptr() if separate else 0,
-                int(i > 0), dtype, b, d_in, h_in, w_in, cin, cout, stride, stream,
-            )
-            if err != 0:
-                raise RuntimeError(f"fused_tail_cuda: launch of block {i} failed: "
-                                   f"{lib.msl_cuda_error_string(err).decode()}")
-            fused_tail_cuda.launches += 1
-            if emitted is not None:
-                outs.append(emitted.permute(0, 4, 1, 2, 3))
-            cur = chain
+        if plan.variant == "cluster":
+            return _run_cluster(lib, cur, operands, specs, emit, plan, stream)
+        return _run_blocks(lib, cur, operands, specs, emit, stream)
+
+
+def _out_shapes(cur: torch.Tensor, specs) -> list:
+    b, *dims = cur.shape[:4]
+    shapes = []
+    for _, cout, stride in specs:
+        dims = [_out_size(n, stride) for n in dims]
+        shapes.append((b, *dims, cout))
+    return shapes
+
+
+def _run_cluster(lib, cur, operands, specs, emit, plan, stream) -> list:
+    """The whole bf16 chain in one launch of the cluster kernel."""
+    shapes = _out_shapes(cur, specs)
+    maps = {i: torch.empty(shapes[i], dtype=cur.dtype, device=cur.device) for i in sorted(emit)}
+    ptrs, dims = [], []
+    in_dims = cur.shape[1:4]
+    for i, ((dw_w, dw_g, dw_b, pw_w, pw_g, pw_b), (cin, cout, stride)) in enumerate(
+            zip(operands, specs)):
+        ptrs += [t.data_ptr() for t in (dw_w, dw_g, dw_b, pw_w, pw_g, pw_b)]
+        ptrs.append(maps[i].data_ptr() if i in maps else None)
+        dims += [cin, cout, stride, *in_dims, *shapes[i][1:4], *plan.slices[i]]
+        in_dims = shapes[i][1:4]
+    err = lib.msl_tail_cluster(
+        cur.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
+        len(specs), (ctypes.c_int * len(plan.offsets))(*plan.offsets), cur.shape[0], stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_tail_cuda: launch of the cluster kernel failed: "
+                           f"{lib.msl_cuda_error_string(err).decode()}")
+    fused_tail_cuda.launches += 1
+    return [m.permute(0, 4, 1, 2, 3) for m in maps.values()]
+
+
+def _run_blocks(lib, cur, operands, specs, emit, stream) -> list:
+    """One launch per block: block_mma for bf16, block_f32 for float32."""
+    dtype, n = cur.dtype, len(specs)
+    outs = []
+    for i, (op, (cin, cout, stride), shape) in enumerate(zip(operands, specs,
+                                                            _out_shapes(cur, specs))):
+        b, d_in, h_in, w_in = cur.shape[:4]
+        # the float32 activation feeds the next block; an emitted map is
+        # in x's dtype, which for float32 x is that same buffer
+        chain = emitted = None
+        if dtype == torch.float32 or i < n - 1 or i not in emit:
+            chain = torch.empty(shape, dtype=torch.float32, device=cur.device)
+        if i in emit:
+            emitted = (chain if dtype == torch.float32
+                       else torch.empty(shape, dtype=dtype, device=cur.device))
+        separate = emitted is not None and emitted is not chain
+        err = lib.msl_tail_block(
+            cur.data_ptr(), *(t.data_ptr() for t in op),
+            chain.data_ptr() if chain is not None else 0,
+            emitted.data_ptr() if separate else 0,
+            int(i > 0), DTYPES[dtype], b, d_in, h_in, w_in, cin, cout, stride, stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"fused_tail_cuda: launch of block {i} failed: "
+                               f"{lib.msl_cuda_error_string(err).decode()}")
+        fused_tail_cuda.launches += 1
+        if emitted is not None:
+            outs.append(emitted.permute(0, 4, 1, 2, 3))
+        cur = chain
     return outs
 
 

@@ -3,7 +3,7 @@
 Marked ``gpu``: each test skips inside its body when no CUDA device is
 present, so every pytest worker collects the same tests. Run on a card with
 
-    python -m pytest -m gpu tests/
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu_nms.py
 
 Keep masks are booleans: the kernel must equal the plain version exactly.
 """
@@ -68,6 +68,24 @@ def test_kernel_thresholds(t):
     keep = greedy_nms_cuda(boxes, valid, t)
     torch.cuda.synchronize()
     torch.testing.assert_close(keep, greedy_nms(boxes, valid, t), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [130, 1000])
+def test_kernel_long_suppression_chain(k):
+    """Box i suppresses box i + 1 only (IoU 0.54, then 0.25): the greedy
+    answer alternates, and every word needs its longest fixpoint."""
+    _need_card()
+    s = np.float32(0.3)
+    lo = np.zeros((2, k, 3), np.float32)
+    lo[:, :, 0] = np.arange(k, dtype=np.float32) * s
+    boxes = np.concatenate([lo, lo + 1], -1)
+    valid = np.ones((2, k), bool)
+    valid[1, 5::7] = False
+    boxes, valid = _on_card(boxes, valid)
+    keep = greedy_nms_cuda(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    assert keep[0, ::2].all() and not keep[0, 1::2].any()
+    torch.testing.assert_close(keep, greedy_nms(boxes, valid, 0.5), rtol=0, atol=0)
 
 
 def test_kernel_rejects_what_it_does_not_take():

@@ -5,8 +5,11 @@ present, so every pytest worker collects the same tests. Run on a card with
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu_tail.py
 
-The kernel's depthwise sums equal the plain version's bit for bit; its
-pointwise sums run in another order than torch.matmul's. In float32 the
+The kernels' depthwise sums equal the plain version's bit for bit; their
+pointwise sums run in another order than torch.matmul's (in bf16 on the
+tensor cores). ``plan_tail`` picks the kernel: at the headline one cluster
+launch for the whole chain, for a larger input one tensor-core launch per
+block, in float32 one CUDA-core launch per block. In float32 the
 maps agree to rtol 1e-5, atol 1e-5. In bfloat16 a float32 difference of an
 ulp can tip the bf16 rounding of a depthwise output, and the chain spreads
 it (``tests/test_torch_port_tail.py`` sets out why): each element is held
@@ -20,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from mslesions3d_tpu_torch.kernels.tail import MAX_C_IN, fused_tail_cuda, tail_reference
+from mslesions3d_tpu_torch.kernels.tail import MAX_C_IN, fused_tail_cuda, plan_tail, tail_reference
 
 pytestmark = pytest.mark.gpu
 
@@ -61,15 +64,7 @@ def _bf16_ulp(v):
     return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(float(v.abs().max()) / 4))) - 7)
 
 
-@pytest.mark.parametrize("batch", [1, 8])
-def test_headline_tail_bf16(batch):
-    _need_card()
-    x, layers = _x((batch, 128, 12, 12, 12), torch.bfloat16), _layers(HEADLINE_TAIL, torch.bfloat16)
-    before = fused_tail_cuda.launches
-    outs = fused_tail_cuda(x, layers, (1, 3))
-    torch.cuda.synchronize()
-    assert fused_tail_cuda.launches == before + 4
-    refs = tail_reference(x, layers, (1, 3))
+def _check_bf16(outs, refs):
     for out, ref, bound in zip(outs, refs, MAX_DIFFERING):
         assert out.dtype == torch.bfloat16 and out.shape == ref.shape
         assert out.is_contiguous(memory_format=torch.channels_last_3d)
@@ -79,19 +74,64 @@ def test_headline_tail_bf16(batch):
         assert float((diff > 0).float().mean()) < bound
 
 
-@pytest.mark.parametrize("plan,shape,emit", [
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_headline_tail_bf16(batch):
+    _need_card()
+    x, layers = _x((batch, 128, 12, 12, 12), torch.bfloat16), _layers(HEADLINE_TAIL, torch.bfloat16)
+    assert plan_tail(x.dtype, x.shape, HEADLINE_TAIL).variant == "cluster"
+    before = fused_tail_cuda.launches
+    outs = fused_tail_cuda(x, layers, (1, 3))
+    torch.cuda.synchronize()
+    assert fused_tail_cuda.launches == before + 1
+    _check_bf16(outs, tail_reference(x, layers, (1, 3)))
+
+
+SHAPES = [
     ([(128, 128, 2), (128, 128, 1)], (2, 128, 4, 4, 4), (1,)),
     ([(128, 256, 1), (256, 256, 2)], (3, 128, 5, 6, 7), (0, 1)),
     ([(64, 200, 2), (200, 96, 1), (96, 40, 2)], (2, 64, 9, 9, 9), (0, 2)),
     (HEADLINE_TAIL, (8, 128, 12, 12, 12), (1, 3)),
-], ids=["narrow", "odd-dims", "odd-widths", "headline"])
+]
+SHAPE_IDS = ["narrow", "odd-dims", "odd-widths", "headline"]
+
+
+@pytest.mark.parametrize("plan,shape,emit", SHAPES, ids=SHAPE_IDS)
+def test_kernel_bf16_within_bound(plan, shape, emit):
+    """Every shape the float32 test takes, in bf16 on the cluster kernel."""
+    _need_card()
+    x, layers = _x(shape, torch.bfloat16), _layers(plan, torch.bfloat16)
+    assert plan_tail(x.dtype, x.shape, plan).variant == "cluster"
+    outs = fused_tail_cuda(x, layers, emit)
+    torch.cuda.synchronize()
+    assert len(outs) == len(emit)
+    _check_bf16(outs, tail_reference(x, layers, emit))
+
+
+@pytest.mark.parametrize("plan,shape,emit", [
+    (HEADLINE_TAIL, (1, 128, 24, 24, 24), (1, 3)),
+    ([(64, 200, 2), (200, 96, 1), (96, 40, 2)], (1, 64, 24, 24, 24), (0, 2)),
+], ids=["headline-widths", "odd-widths"])
+def test_per_block_variant_bf16(plan, shape, emit):
+    """An input too large for a cluster's shared memory: one tensor-core launch per block."""
+    _need_card()
+    x, layers = _x(shape, torch.bfloat16), _layers(plan, torch.bfloat16)
+    assert plan_tail(x.dtype, x.shape, plan).variant == "block_mma"
+    before = fused_tail_cuda.launches
+    outs = fused_tail_cuda(x, layers, emit)
+    torch.cuda.synchronize()
+    assert fused_tail_cuda.launches == before + len(plan)
+    _check_bf16(outs, tail_reference(x, layers, emit))
+
+
+@pytest.mark.parametrize("plan,shape,emit", SHAPES, ids=SHAPE_IDS)
 def test_kernel_f32_close_to_plain(plan, shape, emit):
     _need_card()
     x, layers = _x(shape, torch.float32), _layers(plan, torch.float32)
+    before = fused_tail_cuda.launches
     outs = fused_tail_cuda(x, layers, emit)
     torch.cuda.synchronize()
     refs = tail_reference(x, layers, emit)
-    assert len(outs) == len(emit)
+    assert len(outs) == len(emit) and fused_tail_cuda.launches == before + len(plan)
     for out, ref in zip(outs, refs):
         assert out.dtype == torch.float32
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)

@@ -4,7 +4,9 @@ The port's plain greedy NMS (the version CPU tensors use, and the one the
 CUDA kernel is held to on the card) must equal JAX ``greedy_nms`` and the
 Pallas kernel in interpret mode exactly: keep masks are booleans, so there
 is no tolerance. A numpy emulation of the CUDA kernel's bitmask algorithm
-checks its design here, where the kernel itself cannot run.
+(the mask words with the transposed diagonal blocks, and the walk that
+resolves one 64-candidate word at a time) checks its design here, where
+the kernel itself cannot run.
 """
 
 import jax.numpy as jnp
@@ -16,7 +18,7 @@ from mslesions3d_tpu.kernels.nms import greedy_nms_pallas
 from mslesions3d_tpu.models.priors import default_scales, generate_priors
 from mslesions3d_tpu.ops.nms import detect_objects as jax_detect_objects
 from mslesions3d_tpu.ops.nms import greedy_nms as jax_greedy_nms
-from mslesions3d_tpu_torch.kernels.nms import MAX_K, SMEM_BUDGET, greedy_nms_cuda, scan_smem_bytes
+from mslesions3d_tpu_torch.kernels.nms import MAX_K, greedy_nms_cuda, mask_words
 from mslesions3d_tpu_torch.ops.boxes import pairwise_iou
 from mslesions3d_tpu_torch.ops.nms import (
     detect_objects,
@@ -80,8 +82,21 @@ def _near_threshold_case():
     return boxes, np.ones(boxes.shape[:2], bool)
 
 
+def _chain_case():
+    """Box i suppresses box i + 1 only (IoU 0.54, then 0.25): the greedy
+    answer alternates, so each word's fixpoint needs all of its rounds.
+    Row 1 drops every seventh candidate and ends before K."""
+    k = 150
+    lo = np.zeros((2, k, 3), np.float32)
+    lo[:, :, 0] = np.arange(k, dtype=np.float32) * np.float32(0.3)
+    valid = np.ones((2, k), bool)
+    valid[1, 5::7] = False
+    valid[1, 140:] = False
+    return np.concatenate([lo, lo + 1], -1), valid
+
+
 CASES = {"clustered_k200": _clustered_case, "prefix_k384": _prefix_case,
-         "near_threshold": _near_threshold_case}
+         "near_threshold": _near_threshold_case, "chain_k150": _chain_case}
 
 
 def _jax_keep(boxes, valid):
@@ -121,27 +136,45 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
     np.testing.assert_array_equal(keep.numpy(), _jax_keep(boxes, valid))
 
 
+def walk_smem_bytes(k):
+    """csrc/nms.cu walk_smem_bytes: three buffers of 64 mask rows and of one
+    64-word diagonal block."""
+    return 3 * 64 * (mask_words(k) + 1) * 8
+
+
 def test_max_k_is_the_largest_that_fits_shared_memory():
-    assert scan_smem_bytes(MAX_K) <= SMEM_BUDGET < scan_smem_bytes(MAX_K + 1)
-    assert scan_smem_bytes(1000) == 129_000  # the headline K: 16 words per row
-    assert -(-MAX_K // 64) <= 32  # one word per lane of the walking warp
+    # the walking warp holds one 64-candidate word per lane: 32 words
+    assert -(-MAX_K // 64) == 32 < -(-(MAX_K + 1) // 64)
+    # its three buffers of staged rows fit a Hopper block's shared memory
+    assert walk_smem_bytes(MAX_K) <= 232_448
+    assert walk_smem_bytes(1000) == 26_112  # the headline K: 16 words per row
+    assert [mask_words(k) for k in (1, 64, 65, 1000, 1025, MAX_K)] == [2, 2, 2, 16, 18, 32]
+
+
+ALL64 = (1 << 64) - 1
 
 
 def _bitmask_emulation(boxes, valid, t, rng):
-    """numpy mirror of csrc/nms.cu: mask words, block skips, scan.
+    """numpy mirror of csrc/nms.cu: mask words, diagonal blocks, block skips, walk.
 
     Words the kernel never writes are filled with random bits, which proves
-    the scan never reads them.
+    the walk never reads them. The mask rows have mask_words(k) words; a
+    diagonal block is also written transposed (word i: the j < i of the same
+    64 that suppress i). The walk resolves a word at a time: the fixpoint of
+    kept = live & ~(suppressed by kept) from kept = live, then the kept rows
+    OR into the later words' removed bits.
     """
     n, k, _ = boxes.shape
-    nw = -(-k // 64)
+    nw, nwp = -(-k // 64), mask_words(k)
     iou = pairwise_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
-    mask = rng.integers(0, 2**63, size=(n, k, nw), dtype=np.uint64)  # torch.empty garbage
+    mask = rng.integers(0, 2**63, size=(n, k, nwp), dtype=np.uint64)  # torch.empty garbage
+    diag_t = rng.integers(0, 2**63, size=(n, nwp, 64), dtype=np.uint64)
     for row in range(n):
         for rb in range(nw):
             for cb in range(rb, nw):
                 if not valid[row, cb * 64:].any():
                     continue  # block skipped: nothing past its first column is valid
+                rows = [0] * 64
                 for j in range(rb * 64, min(k, rb * 64 + 64)):
                     bits = 0
                     for c in range(min(64, k - cb * 64)):
@@ -149,18 +182,36 @@ def _bitmask_emulation(boxes, valid, t, rng):
                         if i > j and iou[row, j, i] > t:
                             bits |= 1 << c
                     mask[row, j, cb] = np.uint64(bits)
+                    rows[j - rb * 64] = bits
+                if cb == rb:
+                    for col in range(64):
+                        diag_t[row, cb, col] = np.uint64(
+                            sum(((rows[r] >> col) & 1) << r for r in range(64)))
     keep = np.zeros((n, k), bool)
     for row in range(n):
         idx = np.nonzero(valid[row])[0]
         count = int(idx[-1]) + 1 if idx.size else 0
         words = -(-count // 64)
-        removed = [0] * words
-        for i in range(count):
-            w = i // 64
-            if valid[row, i] and not (removed[w] >> (i % 64)) & 1:
-                keep[row, i] = True
-                for lane in range(w, words):
-                    removed[lane] |= int(mask[row, i, lane])
+        removed = [ALL64] * 32  # invalid candidates count as removed
+        for i in idx.tolist():
+            removed[i // 64] &= ~(1 << (i % 64))
+        for w in range(words):
+            live = ~removed[w] & ALL64
+            cols = [int(diag_t[row, w, lane]) for lane in range(64)]
+            kept = live
+            while True:  # one round: two ballots in the kernel
+                nxt = sum(1 << b for b in range(64) if (live >> b) & 1 and not cols[b] & kept)
+                if nxt == kept:
+                    break
+                kept = nxt
+            for b in range(64):
+                if w * 64 + b < k:
+                    keep[row, w * 64 + b] = bool((kept >> b) & 1)
+            staged = range(w * 64, min(count, w * 64 + 64))  # rows past count: not staged
+            for c in range(w + 1, words):
+                for j in staged:
+                    if (kept >> (j - w * 64)) & 1:
+                        removed[c] |= int(mask[row, j, c])
     return keep
 
 
@@ -170,6 +221,10 @@ def test_kernel_bitmask_design_is_exact(case):
     rng = np.random.default_rng(1)
     ours = _bitmask_emulation(boxes, valid, 0.5, rng)
     np.testing.assert_array_equal(ours, _jax_keep(boxes, valid))
+    pallas = np.asarray(
+        greedy_nms_pallas(jnp.asarray(boxes), jnp.asarray(valid), 0.5, interpret=True)
+    )
+    np.testing.assert_array_equal(ours, pallas)
 
 
 def _detect_inputs(seed=0, batch=3, n_classes=3, size=64):
