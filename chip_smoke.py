@@ -35,6 +35,24 @@ Phases (any failure exits non-zero and prints no result line):
    agree with the default path's on the same weights, raw and BN-calibrated,
    and both are set beside the float32 model's; the fp32 forward on
    the card agrees with the CPU's, with and without the flags.
+4b. the training path, with the launch counts set to 0 just before it and
+   read just after, at the bench's training geometry (64^3 bf16, full
+   width, lr 1e-3, soft matching [0.1, 0.2], flips and rot90 on the card):
+   a ``TrainState`` from seed 0 takes 20 steps at batch 8 on a seeded batch
+   (randn volumes with two painted cubes; every loss finite, the last 5
+   below the first 5) and 10 at batch 64, with no kernel launched by a
+   plain train step; then the ``with_detections`` train step and the eval
+   step, also at min_score 0.05 so that some candidates pass (K1 must
+   launch; their detections equal the plain NMS's on the same locs and
+   scores, taken from the model's forward hook), and the eval step with
+   ``use_pallas`` + ``use_pallas_tail``, at 0.5 and 0.05 (K1, K2 and K3
+   must launch; their detections equal the plain NMS's, and K2 and K3 are
+   held against their plain versions on the operands this step gave them:
+   layer 3 at 8^3 and the tail from its output).
+   Times: ms per step and volumes/s at batch 8 and 64 and the eval step's
+   ms (CUDA events, median of 3 rounds), the peak memory, and (at the end)
+   a torch.profiler breakdown of a step: top kernels, launches per step and
+   the device's idle share.
 5. times on the card: K1, K2 and K3 beside their plain versions and bounds
    (and K2 at layers 3/5/7 at batch 8 and layer 3 at batch 32 beside the
    cuDNN conv + BN + ReLU it replaces, its first version (the direct
@@ -51,11 +69,13 @@ Phases (any failure exits non-zero and prints no result line):
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from functools import partial
 
 import numpy as np
@@ -64,6 +84,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from mslesions3d_tpu_torch.data.augment import AugmentConfig
 from mslesions3d_tpu_torch.kernels.build import build, find_nvcc
 from mslesions3d_tpu_torch.kernels.depthwise import (
     depthwise_bn_relu,
@@ -72,9 +93,21 @@ from mslesions3d_tpu_torch.kernels.depthwise import (
 )
 from mslesions3d_tpu_torch.kernels.nms import greedy_nms, greedy_nms_cuda
 from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, plan_tail, tail_reference
-from mslesions3d_tpu_torch.models.ssd3d import SSD3DConfig
-from mslesions3d_tpu_torch.ops.nms import detect_objects, nms_candidates, select_detections
+from mslesions3d_tpu_torch.models.ssd3d import SSD3D, SSD3DConfig, model_priors
+from mslesions3d_tpu_torch.ops.metrics import calculate_mAP
+from mslesions3d_tpu_torch.ops.nms import (
+    detect_objects,
+    detections_to_lists,
+    nms_candidates,
+    select_detections,
+)
 from mslesions3d_tpu_torch.serving import Detector, RequestBatcher
+from mslesions3d_tpu_torch.train import (
+    create_train_state,
+    eval_view,
+    make_eval_step,
+    make_train_step,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): float32 outside the
 # tensor cores, bf16 on the tensor cores, and device memory bandwidth.
@@ -96,6 +129,11 @@ FLAG_SETTINGS = {
     "both": dict(use_pallas=True, use_pallas_tail=True),
 }
 KERNELS = ("nms", "depthwise", "tail")
+# the bench's training geometry (bench.py build_train) and its augmentation
+TRAIN = dict(n_classes=2, input_channels=1, input_size=(64, 64, 64), dtype="bfloat16", lr=1e-3,
+             threshold=[0.1, 0.2])
+TRAIN_AUGMENT = dict(flip_axes=(0, 1, 2), rot90_planes=((1, 2),))
+TRAIN_BOXES = ((0.2, 0.2, 0.2, 0.5, 0.5, 0.5), (0.6, 0.6, 0.6, 0.8, 0.8, 0.8))
 # K3 in bf16 against its plain version: share of differing elements per
 # emitted map (5, 7); tests/test_torch_port_tail.py sets out why
 TAIL_MAX_DIFFERING = (0.01, 0.15)
@@ -402,28 +440,40 @@ def device_busy_ms(prof) -> tuple[float, float]:
     return busy / 1e3, (max(end for _, end in spans) - spans[0][0]) / 1e3
 
 
-def profile_detect(name, detector, x, card, calls=3):
-    with torch.inference_mode():
-        detector.detect(x)
+def profile_calls(label, what, fn, card, calls=3) -> dict:
+    """torch.profiler breakdown of ``calls`` calls of fn() (``what``) after a warm one:
+    the device's busy time and idle share, launches per call and the top
+    kernels by device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                detector.detect(x)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
+        window_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms, span_ms = device_busy_ms(prof)
     launches = sum(e.count for e in rows) // calls
     cudnn_dw = sum(e.count for e in rows if "convolveNd" in e.key) // calls
-    log(f"profile [{name}] of {calls} Detector.detect calls at batch {x.shape[0]}: device busy "
-        f"{busy_ms:.3f} ms (union of kernel intervals) of a {span_ms:.3f} ms span from the "
-        f"first kernel's start to the last one's end, idle share {1 - busy_ms / span_ms:.3f}; "
-        f"host window {window_ms:.3f} ms; {launches} kernel launches per call, "
-        f"{cudnn_dw} of them cuDNN implicit_convolveNd [{card}]")
+    conv = sum(e.count for e in rows if "conv" in e.key.lower()) // calls
+    idle = 1 - busy_ms / span_ms
+    log(f"profile [{label}] of {calls} {what}: device busy {busy_ms:.3f} ms (union of kernel "
+        f"intervals) of a {span_ms:.3f} ms span from the first kernel's start to the last one's "
+        f"end, idle share {idle:.3f}; host window {window_ms:.3f} ms; {launches} kernel launches "
+        f"per call, {cudnn_dw} of them cuDNN's convolveNd kernels (grouped convs: forward, "
+        f"dgrad, wgrad), {conv} with 'conv' in the name [{card}]")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3 / calls:9.3f} ms/call  {e.count // calls:4d} "
             f"launches/call  {e.key[:90]}")
+    return {"busy_ms": busy_ms / calls, "idle_share": idle, "launches": launches,
+            "window_ms": window_ms / calls}
+
+
+def profile_detect(name, detector, x, card, calls=3):
+    with torch.inference_mode():
+        profile_calls(name, f"Detector.detect calls at batch {x.shape[0]}",
+                      partial(detector.detect, x), card, calls)
 
 
 def serve(detector, requests, counters):
@@ -451,6 +501,213 @@ def check_served(requests, served, config):
     counts = np.concatenate([d["count"] for d in served])
     check(counts.max() > 0, "no volume has a detection")
     return counts
+
+
+# ---------------------------------------------------------------- training
+def train_batch(b: int, gen) -> dict:
+    """bench.py's training batch, made on the card: randn volumes with the two
+    boxes (label 1) painted in (+3), so the model has something to learn."""
+    d = TRAIN["input_size"][0]
+    images = torch.randn((b, d, d, d, 1), generator=gen, device="cuda")
+    for box in TRAIN_BOXES:
+        v = [int(c * d) for c in box]
+        images[:, v[0]:v[3], v[1]:v[4], v[2]:v[5]] += 3.0
+    boxes = torch.tensor(TRAIN_BOXES, dtype=torch.float32, device="cuda")
+    return {"image": images, "boxes": boxes.expand(b, -1, -1).contiguous(),
+            "labels": torch.ones((b, 2), dtype=torch.int32, device="cuda"),
+            "box_mask": torch.ones((b, 2), dtype=torch.bool, device="cuda")}
+
+
+@contextmanager
+def tapped(model):
+    """Keeps the detached (locs, scores) of every forward of ``model``."""
+    outs = []
+    handle = model.register_forward_hook(
+        lambda module, args, out: outs.append(tuple(t.detach() for t in out)))
+    try:
+        yield outs
+    finally:
+        handle.remove()
+
+
+def _detached(params: dict) -> dict:
+    return {k: v.detach() if torch.is_tensor(v) else v for k, v in params.items()}
+
+
+@contextmanager
+def tapped_kernel_operands(model):
+    """Keeps, for every forward of a ``use_pallas`` + ``use_pallas_tail``
+    model, K2's operands at its first wanted layer and K3's input, folded
+    layers and emitted maps, taken while the step's weights are in place."""
+    base = model.base
+    first = min(base.feature_layers)
+    emit = tuple(sorted(i - base.tail_from for i in base.feature_layers if i >= base.tail_from))
+    dw, tail = [], []
+
+    def on_block(block, args):
+        x = args[0].detach().contiguous(memory_format=torch.channels_last_3d)
+        dw.append((x, *(t.detach() for t in block_dw_operands(block, x.dtype))))
+
+    def on_base(backbone, args, features):
+        layers = [_detached(block.folded_params()) for block in backbone.features[base.tail_from:]]
+        x = features[first].detach().contiguous(memory_format=torch.channels_last_3d)
+        tail.append((x, layers, emit))
+
+    handles = [base.features[first].register_forward_pre_hook(on_block),
+               base.register_forward_hook(on_base)]
+    try:
+        yield dw, tail
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def check_plain_detections(name, det, locs, scores, priors, config) -> None:
+    """A step's detections (K1) against the plain NMS on the same locs and scores."""
+    kw = dict(n_classes=config.n_classes, top_k=config.top_k)
+    boxes, cscores, valid = nms_candidates(locs, scores, priors, min_score=config.min_score, **kw)
+    plain = select_detections(boxes, cscores, greedy_nms(boxes, valid, config.max_overlap), **kw)
+    for key in plain:
+        check(torch.equal(det[key], plain[key]), f"{name}: detections with K1 != plain NMS in {key}")
+    log(f"{name}: detections with K1 == the plain NMS's on the same locs and scores (all four "
+        f"outputs; {int(det['count'].sum())} detections over {det['count'].shape[0]} volumes, "
+        f"{int(valid.sum())} candidates above min_score)")
+
+
+def step_rounds(step, state, batch, gen, iters: int, rounds: int = 3):
+    """CUDA-event ms per train step over ``iters`` back-to-back steps, per round."""
+    ms = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            state, _m = step(state, batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / iters)
+    return ms, state
+
+
+def drive_training(card, counters) -> dict:
+    """Phase 4b: the training path at the bench's training geometry; returns
+    what the kernels line and the profile at the end need."""
+    t_phase = time.perf_counter()
+    config = SSD3DConfig.create(**TRAIN)
+    flagged_config = SSD3DConfig.create(**TRAIN, use_pallas=True, use_pallas_tail=True)
+    model, flagged_model = SSD3D(config), SSD3D(flagged_config)
+    priors = torch.from_numpy(model_priors(config)).cuda()
+    state = create_train_state(config, seed=0, device="cuda")
+    augment = AugmentConfig(**TRAIN_AUGMENT)
+    step = make_train_step(config, model, priors, augment=augment)
+    metric_step = make_train_step(config, model, priors, augment=augment, with_detections=True)
+    eval_step = make_eval_step(config, model, priors)
+    flagged_eval = make_eval_step(flagged_config, flagged_model, priors)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data_gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = {b: train_batch(b, data_gen) for b in (8, 64)}
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"training: 64^3 bf16 MobileNet SSD3D width 1.0, {n_params:,} float32 master "
+        f"parameters, {priors.shape[0]} priors, lr {config.lr}, soft matching "
+        f"{list(config.threshold)}, augmentation {TRAIN_AUGMENT}, TrainState from seed 0")
+
+    for c in counters:
+        c.launches = 0
+    losses, peak = {}, {}
+    for b, n in ((8, 20), (64, 10)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(n):
+            state, m = step(state, batches[b], gen)
+            out.append(m["total_loss"])
+        losses[b] = torch.stack(out).float().cpu()
+        peak[b] = torch.cuda.max_memory_allocated()
+        log(f"{n} train steps at batch {b} in {time.perf_counter() - t0:.2f} s (the first "
+            f"includes warm-up); losses {[round(float(v), 4) for v in losses[b]]}; peak memory "
+            f"allocated {peak[b] / 2**30:.3f} GiB [{card}]")
+        check(bool(torch.isfinite(losses[b]).all()), f"a non-finite loss at batch {b}")
+    first, last = float(losses[8][:5].mean()), float(losses[8][-5:].mean())
+    log(f"batch 8, mean loss of steps 1-5 {first:.4f}, of steps 16-20 {last:.4f}")
+    check(last < first, "the loss did not fall over 20 steps on the repeated batch")
+    in_train = [c.launches for c in counters]
+    check(in_train == [0, 0, 0], f"a plain train step launched a kernel: {in_train}")
+    check(int(state.step) == int(state.opt_state.count) == 30, "the step count is not 30")
+
+    # the eval step once more at min_score 0.05: after 31 steps no candidate
+    # of the eval forward passes the bench's 0.5, and K1 should face some
+    low_config = dataclasses.replace(config, min_score=0.05)
+    with tapped(model) as outs:
+        state, m = metric_step(state, batches[8], gen)
+        k1_metric = greedy_nms_cuda.launches
+        ev = eval_step(eval_view(state), batches[8])
+        k1_eval = greedy_nms_cuda.launches - k1_metric
+        ev_low = make_eval_step(low_config, model, priors)(eval_view(state), batches[8])
+    check(k1_metric > 0 and k1_eval > 0, "the metric or eval step did not launch K1")
+    check_plain_detections("with_detections train step", m["detections"], *outs[0], priors,
+                           config)
+    check_plain_detections("eval step", ev["detections"], *outs[1], priors, config)
+    check_plain_detections("eval step at min_score 0.05", ev_low["detections"], *outs[2],
+                           priors, low_config)
+    check(int(ev_low["detections"]["count"].sum()) > 0, "the eval step found no detection")
+    before = [c.launches for c in counters]
+    with tapped(flagged_model) as fouts, tapped_kernel_operands(flagged_model) as (dw, tail):
+        fev = flagged_eval(eval_view(state), batches[8])
+        fev_low = make_eval_step(dataclasses.replace(flagged_config, min_score=0.05),
+                                 flagged_model, priors)(eval_view(state), batches[8])
+    flagged = [c.launches - n for c, n in zip(counters, before)]
+    launches = [c.launches for c in counters]
+    log(f"training path launches: K1 {k1_metric} in the with_detections train step and "
+        f"{k1_eval} in the eval step (and 1 at min_score 0.05); two eval steps (min_score "
+        f"{config.min_score} and 0.05) with use_pallas + use_pallas_tail: K1 {flagged[0]}, "
+        f"K2 {flagged[1]}, K3 {flagged[2]}; in all {launches}")
+    check(min(flagged) > 0, "the flagged eval step did not launch every kernel (K1, K2, K3)")
+    # K2 and K3 against their plain versions on the operands the flagged eval
+    # step gave them (layer 3 at 8^3 and the tail from it); not counted above
+    dw_x, *dw_ops = dw[0]
+    dw_check = compare_dw("flagged eval step, layer 3", dw_x, *dw_ops)
+    tail_check = compare_tail("flagged eval step, layers 4-7", *tail[0])
+    check_plain_detections("flagged eval step", fev["detections"], *fouts[0], priors,
+                           flagged_config)
+    check_plain_detections("flagged eval step at min_score 0.05", fev_low["detections"],
+                           *fouts[1], priors, dataclasses.replace(flagged_config, min_score=0.05))
+    check(int(fev_low["detections"]["count"].sum()) > 0, "the flagged eval step found no detection")
+    for key in ("total_loss", "conf_loss", "loc_loss"):
+        a, b = float(fev[key]), float(ev[key])
+        log(f"eval step {key}: {b:.5f} on the default path, {a:.5f} with both flags")
+        check(np.isfinite(a) and abs(a - b) <= PATHS_MAX_REL_ERR * abs(b),
+              f"the flagged eval step's {key} disagrees with the default path's")
+    det_lists = detections_to_lists(ev_low["detections"])
+    gt = [batches[8]["boxes"][i].cpu().numpy() for i in range(8)]
+    detail = calculate_mAP(*det_lists, gt, [np.ones(2, np.int64)] * 8,
+                           [np.zeros(2, bool)] * 8, n_classes=2, min_overlap=0.5,
+                           return_detail=True)
+    log(f"eval step (min_score 0.05) mAP@0.5 on the training batch after 31 steps: "
+        f"{detail['mAP']:.4f} (recall {detail['recall']:.4f}, precision "
+        f"{detail['precision']:.4f}); a check that the metric runs on the step's detections, "
+        "not a quality claim")
+
+    timings = {}
+    for b, iters in ((8, 10), (64, 3)):
+        ms, state = step_rounds(step, state, batches[b], gen, iters)
+        med = float(np.median(ms))
+        timings[b] = med
+        log(f"train step batch {b}: median {med:.3f} ms per step ({b / med * 1e3:.1f} volumes/s), "
+            f"rounds {[round(v, 3) for v in ms]} ms, {iters} steps a round (CUDA events) [{card}]")
+    view = eval_view(state)
+    eval_ms = [cuda_ms(lambda: eval_step(view, batches[8]), iters=10) for _ in range(3)]
+    log(f"eval step batch 8: median {float(np.median(eval_ms)):.3f} ms, rounds "
+        f"{[round(v, 3) for v in eval_ms]} (CUDA events) [{card}]")
+    log(f"training phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "k1_metric": k1_metric, "k1_eval": k1_eval,
+            "flagged": flagged, "dw_check": dw_check, "tail_check": tail_check, "step": step, "state": state, "batches": batches, "gen": gen,
+            "step_ms": timings, "eval_ms": float(np.median(eval_ms)), "peak": peak}
+
+
+def profile_training(train, card) -> None:
+    for b, calls in ((8, 3), (64, 2)):
+        def one_step(b=b):
+            train["state"], _m = train["step"](train["state"], train["batches"][b], train["gen"])
+        profile_calls(f"train step, batch {b}", "train steps", one_step, card, calls)
 
 
 # ---------------------------------------------------------------- phases
@@ -654,6 +911,9 @@ def main() -> int:
             log(f"fp32 32^3 forward [{name}], card vs CPU: {out} max abs diff {err:.3e}")
             check(torch.allclose(a, b, rtol=1e-4, atol=1e-5), f"fp32 forward [{name}] {out}: card != CPU")
 
+    # 4b. the training path
+    train = drive_training(card, counters)
+
     # 5. times on the card. Each kernel, its plain version and (for K2) the
     # cuDNN sequence it replaces are timed twice: per call with CUDA events
     # over back-to-back calls, which is what a caller pays, host launch work
@@ -770,6 +1030,7 @@ def main() -> int:
     x = volumes(32).to(config.compute_dtype)
     for name in ("off", "both"):
         profile_detect(name, detectors[name], x, card)
+    profile_training(train, card)
 
     # 6. kernels line, card line, result line
     k2 = timed["K2 layer 3 (8, 128, 12, 12, 12) bf16"]
@@ -781,6 +1042,9 @@ def main() -> int:
         "replaces": "mslesions3d_tpu/kernels/nms.py:134",
         "launches": k1_default,
         "launches_fused_path": k1_fused,
+        "launches_training_path": train["launches"][0],
+        "launches_with_detections_train_step": train["k1_metric"],
+        "launches_eval_step": train["k1_eval"],
         "max_abs_err": 0.0 if mismatches == 0 else 1.0,
         "mismatches": mismatches,
         "ms": timed["K1 N=8 K=1000"]["kernel_ms"],
@@ -800,8 +1064,10 @@ def main() -> int:
         "source": "mslesions3d_tpu_torch/csrc/depthwise.cu",
         "replaces": "mslesions3d_tpu/kernels/depthwise.py:82",
         "launches": k2_fused,
-        "max_abs_err": dw_err,
-        "mismatches": dw_mismatches,
+        "launches_training_path": train["launches"][1],
+        "max_abs_err": max(dw_err, train["dw_check"][1]),
+        "mismatches": dw_mismatches + train["dw_check"][0],
+        "max_abs_err_training_path": train["dw_check"][1],
         "ms": k2["kernel_ms"],
         "call_ms": k2["kernel_call_ms"],
         "plain_ms": k2["plain_ms"],
@@ -829,7 +1095,10 @@ def main() -> int:
         "source": "mslesions3d_tpu_torch/csrc/tail.cu",
         "replaces": "mslesions3d_tpu/kernels/tail.py:106",
         "launches": k3_fused,
-        "max_abs_err": tail_err[8],
+        "launches_training_path": train["launches"][2],
+        "max_abs_err": max(tail_err[8], train["tail_check"][0]),
+        "max_abs_err_training_path": train["tail_check"][0],
+        "differing_share_training_path": train["tail_check"][1],
         "differing_share": tail_share[8],
         "differing_share_bn_calibrated": shares,
         "ms": timed["K3 batch 8 (8, 128, 12, 12, 12) bf16, layers 4-7"]["kernel_ms"],
@@ -850,6 +1119,9 @@ def main() -> int:
         "shape": "layers 4-7 of the 96^3 model on (8, 128, 12, 12, 12) bf16, 1 launch a call "
                  "(the cluster kernel)",
     }]
+    log("training: " + json.dumps({
+        "step_ms": train["step_ms"], "eval_step_ms_batch8": train["eval_ms"],
+        "peak_bytes": train["peak"], "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

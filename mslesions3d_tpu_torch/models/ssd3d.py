@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.nms import detect_objects
-from .layers import BatchNorm3d, init_conv_
+from .layers import INIT_SCHEMES, BatchNorm3d, init_conv_
 from .mobilenet import MobileNetBackbone
 from .priors import default_scales, feature_map_infos, generate_priors
 
@@ -36,7 +36,8 @@ def _freeze_ratios(aspect_ratios) -> tuple:
 class SSD3DConfig:
     """The JAX package's SSD3DConfig, field for field, so the JSON round-trips.
 
-    Training fields are carried for the JSON and unused by this package yet.
+    The training fields (lr, scheduler, t_max, alpha, focal_*, ema_decay, ...)
+    drive ``train/``; ``remat`` is not ported (training raises).
     """
 
     n_classes: int = 2
@@ -66,7 +67,7 @@ class SSD3DConfig:
     use_l2_rescale: bool = False
     use_pallas: bool = False  # fused depthwise kernel K2 (kernels/depthwise.py), inference
     use_pallas_tail: bool = False  # fused tail kernel K3 (kernels/tail.py), inference
-    remat: bool = False  # training memory option; no effect in eval
+    remat: bool = False  # training memory option; not ported: training raises
     dtype: str = "float32"  # or "bfloat16"
     init_scheme: str = "torch"
     ema_decay: float = 0.0
@@ -166,9 +167,10 @@ class PredictionHeads(nn.Module):
 class SSD3D(nn.Module):
     """Backbone + heads; images (B, D, H, W, C) -> (locs (B, P, 6), scores (B, P, C)).
 
-    The weights are made on the CPU with the "torch" init scheme from
-    ``generator`` (a fresh generator seeded 0 if none is given); move the
-    model with ``.to(device)`` afterwards.
+    The weights are made on the CPU with ``config.init_scheme`` ("torch",
+    "flax" or "kaiming_relu", see ``layers.init_conv_``) from ``generator``
+    (a fresh generator seeded 0 if none is given); move the model with
+    ``.to(device)`` afterwards.
     """
 
     def __init__(self, config: SSD3DConfig, generator: torch.Generator | None = None):
@@ -178,10 +180,8 @@ class SSD3D(nn.Module):
                 f"backbone {config.base_network_config!r}: only MobileNet is ported yet "
                 "(ROADMAP, 'After the main path')"
             )
-        if config.init_scheme != "torch":
-            raise NotImplementedError(
-                f"init_scheme {config.init_scheme!r} comes with the training slice (ROADMAP)"
-            )
+        if config.init_scheme not in INIT_SCHEMES:
+            raise ValueError(f"unknown init_scheme {config.init_scheme!r}; known: {INIT_SCHEMES}")
         self.config = config
         _, channels = feature_map_infos(
             config.base_network_config, config.input_size, config.feature_layers,
@@ -211,7 +211,7 @@ class SSD3D(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         for m in self.modules():
             if isinstance(m, nn.Conv3d):
-                init_conv_(m, generator)
+                init_conv_(m, generator, self.config.init_scheme)
             elif isinstance(m, BatchNorm3d):
                 m.reset_parameters()
         with torch.no_grad():
@@ -219,6 +219,13 @@ class SSD3D(nn.Module):
 
     def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
+        if cfg.remat and self.training:
+            # recomputing a block under torch.utils.checkpoint would move its
+            # BN running statistics twice
+            raise NotImplementedError(
+                "remat=True in training is not ported yet (ROADMAP: recompute without "
+                "updating the BN running statistics twice)"
+            )
         # (B, D, H, W, C) -> (B, C, D, H, W) view with channels_last_3d strides
         x = images.to(cfg.compute_dtype).permute(0, 4, 1, 2, 3)
         features = self.base(x)

@@ -1,0 +1,24 @@
+"""Training: the train state, the reference's optimizer, and the train /
+eval / predict steps."""
+
+from .state import (
+    AdamL2,
+    TrainState,
+    cosine_annealing_schedule,
+    create_train_state,
+    eval_view,
+    make_optimizer,
+)
+from .steps import (
+    make_eval_step,
+    make_gathered_eval_step,
+    make_gathered_train_step,
+    make_predict_step,
+    make_train_step,
+)
+
+__all__ = [
+    "AdamL2", "TrainState", "cosine_annealing_schedule", "create_train_state", "eval_view",
+    "make_optimizer", "make_eval_step", "make_gathered_eval_step", "make_gathered_train_step",
+    "make_predict_step", "make_train_step",
+]

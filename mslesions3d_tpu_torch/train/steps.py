@@ -1,0 +1,307 @@
+"""Train, eval and predict steps on the state's device.
+
+Counterpart of ``mslesions3d_tpu/train/steps.py``. Each step is a function
+of a :class:`..train.state.TrainState` and a batch that returns a new state
+(the old one is left as it was) and device tensors: nothing waits for the
+card. The model passed in is the module the steps call with the state's
+tensors (``torch.func.functional_call``); its own weights are not used.
+The forward runs on the float32 masters rounded to the model's parameter
+dtypes, and autograd's gradients reach the masters in float32.
+
+A batch is a dict of arrays or tensors: ``image`` (B, D, H, W, C),
+``boxes`` (B, M, 6) corner form, ``labels`` (B, M), ``box_mask`` (B, M)
+and optionally ``batch_mask`` (B,).
+
+Not ported yet (ROADMAP): ``patch_training`` (needs ``data/patches.py``),
+the whole-epoch scan and the sharded steps.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch.func import functional_call
+
+from ..data.augment import AugmentConfig, augment_batch
+from ..models.losses import multibox_loss_from_config
+from ..models.ssd3d import SSD3D, SSD3DConfig
+from ..ops.nms import detect_objects
+from .state import TrainState
+
+
+def _batch_on(batch: dict, device) -> dict:
+    out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    if "batch_mask" not in out:
+        out["batch_mask"] = torch.ones(out["image"].shape[0], dtype=torch.bool, device=device)
+    return out
+
+
+def _priors_by_device(priors_center):
+    """fn(device) -> the float32 priors there, copied once per device: a copy
+    from pageable host memory would wait for the card's queue every step."""
+    return functools.cache(torch.as_tensor(priors_center, dtype=torch.float32).to)
+
+
+def _cast(model: SSD3D, params: dict) -> dict:
+    """The masters rounded to the model's parameter dtypes (autograd-visible)."""
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
+    return {n: p.to(dtypes[n]) for n, p in params.items()}
+
+
+def _detect(config: SSD3DConfig, locs, scores, priors):
+    return detect_objects(locs, scores, priors, n_classes=config.n_classes,
+                          min_score=config.min_score, max_overlap=config.max_overlap,
+                          top_k=config.top_k)
+
+
+def _check_patch_training(patch_training: bool) -> None:
+    if patch_training:
+        raise NotImplementedError(
+            "patch_training needs data/patches.py, which is not ported yet (ROADMAP item 12)")
+
+
+def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
+                    augment: AugmentConfig | None = None, hard_negative_mining: bool = False,
+                    skip_nonfinite: bool = True, with_detections: bool = False,
+                    return_grads: bool = False, grad_accum: int = 1,
+                    patch_training: bool = False):
+    """Returns fn(state, batch, generator=None) -> (new state, metrics).
+
+    ``generator`` (a ``torch.Generator`` on the state's device) draws the
+    augmentation; it is required unless ``augment`` is the identity. After
+    augmentation boxes are clipped to [0, 1] and degenerate ones masked.
+
+    With ``skip_nonfinite`` a non-finite loss keeps the old params,
+    optimizer state, BN statistics and EMA (a select on the card, no host
+    sync) while ``step`` and ``nonfinite_streak`` advance. ``grad_accum``
+    splits the batch into micro-batches whose BN statistics chain and whose
+    gradients are averaged before one update. ``with_detections`` adds the
+    detections of the training forward (K1 on the card) and the augmented
+    ground truth; ``return_grads`` adds the gradients by parameter name.
+
+    Metrics: total_loss, conf_loss, loc_loss, n_positives (valid boxes after
+    augmentation, the JAX package's metric), nonfinite, nonfinite_streak and
+    grad_norm (over every parameter).
+    """
+    _check_patch_training(patch_training)
+    augment = augment or AugmentConfig()
+    priors_on = _priors_by_device(priors_center)
+    grad_accum = max(1, int(grad_accum))
+
+    def loss_fn(leaves: dict, stats: dict, mb: dict, priors: torch.Tensor):
+        locs, scores = functional_call(model, (_cast(model, leaves), stats), (mb["image"],))
+        conf_loss, loc_loss = multibox_loss_from_config(
+            config, locs, scores, mb["boxes"], mb["labels"], mb["box_mask"],
+            priors, batch_mask=mb["batch_mask"], hard_negative_mining=hard_negative_mining,
+        )
+        return conf_loss + config.alpha * loc_loss, conf_loss, loc_loss, locs, scores
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
+        device = state.device
+        priors = priors_on(device)
+        batch = _batch_on(batch, device)
+        images, boxes, box_mask = batch["image"], batch["boxes"], batch["box_mask"]
+        if not augment.identity:
+            if generator is None:
+                raise ValueError("make_train_step: augmentation needs a generator")
+            images, boxes = augment_batch(generator, images, boxes, augment)
+            boxes = torch.clamp(boxes, 0.0, 1.0)
+            box_mask = box_mask & ~(boxes[..., 3:] <= boxes[..., :3]).any(dim=-1)
+        full = {"image": images, "boxes": boxes, "labels": batch["labels"],
+                "box_mask": box_mask, "batch_mask": batch["batch_mask"]}
+
+        model.train()
+        names = list(state.params)
+        leaves = {n: p.detach().requires_grad_() for n, p in state.params.items()}
+        # the BN running statistics are moved in place: work on copies
+        stats = {n: s.clone() for n, s in state.batch_stats.items()}
+        b = images.shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch size {b} is not divisible by grad_accum={grad_accum}")
+        m = b // grad_accum
+        gsum, totals, confs, locs_l, locs_out, scores_out = None, [], [], [], [], []
+        for i in range(grad_accum):
+            mb = {k: v[i * m:(i + 1) * m] for k, v in full.items()}
+            total, conf, loc, locs, scores = loss_fn(leaves, stats, mb, priors)
+            g = torch.autograd.grad(total, [leaves[n] for n in names], allow_unused=True)
+            g = [torch.zeros_like(leaves[n]) if gi is None else gi for n, gi in zip(names, g)]
+            gsum = g if gsum is None else torch._foreach_add(gsum, g)
+            totals.append(total.detach())
+            confs.append(conf.detach())
+            locs_l.append(loc.detach())
+            locs_out.append(locs.detach())
+            scores_out.append(scores.detach())
+        if grad_accum == 1:
+            grads = gsum
+            total, conf_loss, loc_loss = totals[0], confs[0], locs_l[0]
+        else:
+            grads = torch._foreach_div(gsum, float(grad_accum))
+            total = torch.stack(totals).mean()
+            conf_loss, loc_loss = torch.stack(confs).mean(), torch.stack(locs_l).mean()
+        grads = dict(zip(names, grads))
+
+        updated = state.apply_gradients(grads, new_batch_stats=stats)
+        decay = float(config.ema_decay)
+        if decay > 0.0 and state.ema_params is not None:
+            ema = torch._foreach_mul(list(state.ema_params.values()), decay)
+            torch._foreach_add_(ema, torch._foreach_mul(
+                [updated.params[n] for n in state.ema_params], 1.0 - decay))
+            updated = updated.replace(ema_params=dict(zip(state.ema_params, ema)))
+
+        if skip_nonfinite:
+            finite = torch.isfinite(total)
+            new_state = _select(finite, updated, state)
+        else:
+            finite = torch.ones((), dtype=torch.bool, device=device)
+            new_state = updated
+        streak = torch.where(finite, 0, state.nonfinite_streak + 1).to(torch.int32)
+        new_state = new_state.replace(nonfinite_streak=streak)
+
+        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
+        metrics = {
+            "total_loss": total,
+            "conf_loss": conf_loss,
+            "loc_loss": loc_loss,
+            "n_positives": box_mask.sum().float(),
+            "nonfinite": (~finite).float(),
+            "nonfinite_streak": streak,
+            "grad_norm": grad_norm,
+        }
+        if with_detections:
+            with torch.no_grad():
+                metrics["detections"] = _detect(config, torch.cat(locs_out),
+                                                torch.cat(scores_out), priors)
+            metrics["aug_boxes"] = boxes
+            metrics["aug_labels"] = batch["labels"]
+            metrics["aug_box_mask"] = box_mask
+        if return_grads:
+            metrics["grads"] = grads
+        return new_state, metrics
+
+    return step
+
+
+def _select(finite: torch.Tensor, new: TrainState, old: TrainState) -> TrainState:
+    """new where the loss was finite, else old with ``step`` advanced."""
+    def pick(a: dict, b: dict) -> dict:
+        return {k: torch.where(finite, a[k], b[k]) for k in a}
+
+    opt = new.opt_state.__class__(
+        count=torch.where(finite, new.opt_state.count, old.opt_state.count),
+        mu=pick(new.opt_state.mu, old.opt_state.mu),
+        nu=pick(new.opt_state.nu, old.opt_state.nu),
+    )
+    return new.replace(
+        params=pick(new.params, old.params),
+        batch_stats=pick(new.batch_stats, old.batch_stats),
+        opt_state=opt,
+        ema_params=None if new.ema_params is None else pick(new.ema_params, old.ema_params),
+        step=old.step + 1,
+    )
+
+
+def _gather_rows(data: dict, idx) -> dict:
+    """Rows ``idx`` of a dataset held on the device, indexed as the JAX
+    package's ``dynamic_index_in_dim``: a negative index counts once from the
+    end, then every index is clamped to the first or last row."""
+    some = next(iter(data.values()))
+    n = some.shape[0]
+    idx = torch.as_tensor(idx, device=some.device).long()
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return {k: v[idx] for k, v in data.items()}
+
+
+def make_gathered_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
+                             augment: AugmentConfig | None = None, **kwargs):
+    """Train step over a dataset held on the device: fn(state, data, idx, generator=None).
+
+    ``data`` holds image / boxes / labels / box_mask rows; ``idx`` (B,)
+    selects the batch on the device. make_train_step's options pass through.
+    """
+    body = make_train_step(config, model, priors_center, augment, **kwargs)
+
+    def step(state, data, idx, generator=None):
+        batch = _gather_rows(data, idx)
+        batch["batch_mask"] = torch.ones(batch["image"].shape[0], dtype=torch.bool,
+                                         device=batch["image"].device)
+        return body(state, batch, generator)
+
+    return step
+
+
+def make_eval_step(config: SSD3DConfig, model: SSD3D, priors_center,
+                   with_detections: bool = True, hard_negative_mining: bool = False,
+                   patch_training: bool = False):
+    """Returns fn(state, batch) -> metrics (+ padded detections).
+
+    The model runs in eval mode on the running BN statistics, so the
+    config's ``use_pallas`` / ``use_pallas_tail`` send its layers to K2 / K3
+    on the card. ``hard_negative_mining`` should match the training flag.
+    ``n_valid`` counts the batch's real rows.
+    """
+    _check_patch_training(patch_training)
+    priors_on = _priors_by_device(priors_center)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: dict) -> dict:
+        device = state.device
+        priors = priors_on(device)
+        batch = _batch_on(batch, device)
+        model.eval()
+        locs, scores = functional_call(model, (_cast(model, state.params), state.batch_stats),
+                                       (batch["image"],))
+        conf_loss, loc_loss = multibox_loss_from_config(
+            config, locs, scores, batch["boxes"], batch["labels"], batch["box_mask"],
+            priors, batch_mask=batch["batch_mask"], hard_negative_mining=hard_negative_mining,
+        )
+        out = {
+            "total_loss": conf_loss + config.alpha * loc_loss,
+            "conf_loss": conf_loss,
+            "loc_loss": loc_loss,
+            "n_valid": batch["batch_mask"].sum().float(),
+        }
+        if with_detections:
+            out["detections"] = _detect(config, locs, scores, priors)
+        return out
+
+    return step
+
+
+def make_gathered_eval_step(config: SSD3DConfig, model: SSD3D, priors_center, **kwargs):
+    """Eval step over a dataset held on the device: fn(state, data, idx, valid).
+
+    ``valid`` (B,) masks the padded rows of a last partial batch (their
+    clamped indices repeat a real row, masked out of every loss and metric).
+    """
+    body = make_eval_step(config, model, priors_center, **kwargs)
+
+    def step(state, data, idx, valid):
+        batch = _gather_rows(data, idx)
+        valid = torch.as_tensor(valid, dtype=torch.bool, device=batch["image"].device)
+        batch["batch_mask"] = valid
+        batch["box_mask"] = batch["box_mask"] & valid[:, None]
+        return body(state, batch)
+
+    return step
+
+
+def make_predict_step(config: SSD3DConfig, model: SSD3D, priors_center,
+                      min_score=None, max_overlap=None, top_k=None):
+    """Returns fn(state, images) -> padded detections."""
+    priors_on = _priors_by_device(priors_center)
+
+    @torch.no_grad()
+    def step(state: TrainState, images) -> dict:
+        device = state.device
+        model.eval()
+        locs, scores = functional_call(model, (_cast(model, state.params), state.batch_stats),
+                                       (torch.as_tensor(images, device=device),))
+        return detect_objects(
+            locs, scores, priors_on(device), n_classes=config.n_classes,
+            min_score=config.min_score if min_score is None else min_score,
+            max_overlap=config.max_overlap if max_overlap is None else max_overlap,
+            top_k=config.top_k if top_k is None else top_k,
+        )
+
+    return step

@@ -15,7 +15,8 @@
   rescale_factors (C,)                  -> rescale_factors (1,C,1,1,1)
 
 BN scale/bias become weight/bias and batch_stats mean/var become
-running_mean/running_var.
+running_mean/running_var. :func:`from_jax_params` maps a tree shaped like
+``params`` alone, such as a gradient tree, onto the parameter names.
 """
 
 from __future__ import annotations
@@ -33,39 +34,60 @@ def _conv_weight(kernel) -> torch.Tensor:
     return _tensor(np.transpose(np.asarray(kernel), (4, 3, 0, 1, 2)))
 
 
-def _batchnorm(prefix: str, params: dict, stats: dict) -> dict:
-    return {
-        f"{prefix}.weight": _tensor(params["scale"]),
-        f"{prefix}.bias": _tensor(params["bias"]),
-        f"{prefix}.running_mean": _tensor(stats["mean"]),
-        f"{prefix}.running_var": _tensor(stats["var"]),
-        f"{prefix}.num_batches_tracked": torch.zeros((), dtype=torch.long),
-    }
-
-
-def from_jax_variables(params: dict, batch_stats: dict, config) -> dict:
-    """JAX SSD3D ``params`` / ``batch_stats`` trees -> this package's state_dict."""
-    state: dict = {}
-    backbone, backbone_stats = params["backbone"], batch_stats["backbone"]
+def _layers(backbone: dict):
     i = 0
     while f"layer_{i}" in backbone:
-        layer, stats = backbone[f"layer_{i}"], backbone_stats[f"layer_{i}"]
-        prefix = f"base.features.{i}"
-        if "conv" in layer:  # stem ConvBNReLU
-            state[f"{prefix}.0.weight"] = _conv_weight(layer["conv"]["kernel"])
-            state.update(_batchnorm(f"{prefix}.1", layer["bn"], stats["bn"]))
-        else:  # DepthwiseSeparableBlock
-            state[f"{prefix}.conv1.weight"] = _conv_weight(layer["dw_conv"]["kernel"])
-            state.update(_batchnorm(f"{prefix}.bn1", layer["dw_bn"], stats["dw_bn"]))
-            state[f"{prefix}.conv2.weight"] = _conv_weight(layer["pw_conv"]["kernel"])
-            state.update(_batchnorm(f"{prefix}.bn2", layer["pw_bn"], stats["pw_bn"]))
+        yield i, backbone[f"layer_{i}"]
         i += 1
+
+
+def _bn_children(layer: dict):
+    """(port child, JAX child) of each BN of a backbone layer."""
+    if "conv" in layer:  # stem ConvBNReLU
+        return (("1", "bn"),)
+    return (("bn1", "dw_bn"), ("bn2", "pw_bn"))
+
+
+def from_jax_params(params: dict, config) -> dict:
+    """A tree shaped like the JAX SSD3D ``params`` -> {port parameter name: tensor}."""
+    out: dict = {}
+    for i, layer in _layers(params["backbone"]):
+        prefix = f"base.features.{i}"
+        if "conv" in layer:
+            out[f"{prefix}.0.weight"] = _conv_weight(layer["conv"]["kernel"])
+        else:
+            out[f"{prefix}.conv1.weight"] = _conv_weight(layer["dw_conv"]["kernel"])
+            out[f"{prefix}.conv2.weight"] = _conv_weight(layer["pw_conv"]["kernel"])
+        for ours, theirs in _bn_children(layer):
+            out[f"{prefix}.{ours}.weight"] = _tensor(layer[theirs]["scale"])
+            out[f"{prefix}.{ours}.bias"] = _tensor(layer[theirs]["bias"])
 
     heads = params["heads"]
     for j, layer in enumerate(sorted(config.feature_layers)):
         for ours, theirs in (("loc_convs", "loc"), ("cl_convs", "cls")):
-            state[f"pred_convs.{ours}.{j}.weight"] = _conv_weight(heads[f"{theirs}_{layer}"]["kernel"])
-            state[f"pred_convs.{ours}.{j}.bias"] = _tensor(heads[f"{theirs}_{layer}"]["bias"])
+            out[f"pred_convs.{ours}.{j}.weight"] = _conv_weight(heads[f"{theirs}_{layer}"]["kernel"])
+            out[f"pred_convs.{ours}.{j}.bias"] = _tensor(heads[f"{theirs}_{layer}"]["bias"])
 
-    state["rescale_factors"] = _tensor(params["rescale_factors"]).reshape(1, -1, 1, 1, 1)
+    out["rescale_factors"] = _tensor(params["rescale_factors"]).reshape(1, -1, 1, 1, 1)
+    return out
+
+
+def from_jax_batch_stats(params: dict, batch_stats: dict) -> dict:
+    """JAX ``batch_stats`` -> {port running_mean / running_var name: tensor}."""
+    out: dict = {}
+    stats = batch_stats["backbone"]
+    for i, layer in _layers(params["backbone"]):
+        for ours, theirs in _bn_children(layer):
+            prefix = f"base.features.{i}.{ours}"
+            out[f"{prefix}.running_mean"] = _tensor(stats[f"layer_{i}"][theirs]["mean"])
+            out[f"{prefix}.running_var"] = _tensor(stats[f"layer_{i}"][theirs]["var"])
+    return out
+
+
+def from_jax_variables(params: dict, batch_stats: dict, config) -> dict:
+    """JAX SSD3D ``params`` / ``batch_stats`` trees -> this package's state_dict."""
+    state = {**from_jax_params(params, config), **from_jax_batch_stats(params, batch_stats)}
+    for key in [k for k in state if k.endswith(".running_var")]:
+        state[key.replace(".running_var", ".num_batches_tracked")] = torch.zeros(
+            (), dtype=torch.long)
     return state
