@@ -15,7 +15,10 @@ Phases (any failure exits non-zero and prints no result line):
    kernel function (cuobjdump -sass): the bf16 product must reach them.
 3. K1 (greedy 3D NMS) against its plain torch version on the card, with
    exact equality of the keep masks, on synthetic cases and on the real
-   candidate sets of the 96^3 model. K2 against its plain version on the
+   candidate sets of the 96^3 model, at K = 1000 (the warp walk), at K =
+   3942 on every wide walk (3, 2, 1 and 0 staged words) and at K = 28545,
+   the first K past what one staged word holds (rows from global memory;
+   its device time is taken there, while the card is empty). K2 against its plain version on the
    headline model's folded weights and real layer inputs (layers 3, 5, 7 at
    batch 8, layer 3 at batch 32, and layer 3 with the BN statistics
    calibrated on seeded volumes) and at depths 1-3, in bf16 and float32:
@@ -34,7 +37,10 @@ Phases (any failure exits non-zero and prints no result line):
    detections on the same (locs, scores); the flagged model's locs/scores
    agree with the default path's on the same weights, raw and BN-calibrated,
    and both are set beside the float32 model's; the fp32 forward on
-   the card agrees with the CPU's, with and without the flags.
+   the card agrees with the CPU's, with and without the flags. A
+   ``Detector`` with top_k = 395 (K = 3942, the wide walk) on the default
+   and the fused path launches K1 once a call, and its detections equal
+   the plain NMS's.
 4b. the training path, with the launch counts set to 0 just before it and
    read just after, at the bench's training geometry (64^3 bf16, full
    width, lr 1e-3, soft matching [0.1, 0.2], flips and rot90 on the card):
@@ -53,11 +59,27 @@ Phases (any failure exits non-zero and prints no result line):
    ms (CUDA events, median of 3 rounds), the peak memory, and (at the end)
    a torch.profiler breakdown of a step: top kernels, launches per step and
    the device's idle share.
-5. times on the card: K1, K2 and K3 beside their plain versions and bounds
-   (and K2 at layers 3/5/7 at batch 8 and layer 3 at batch 32 beside the
-   cuDNN conv + BN + ReLU it replaces, its first version (the direct
-   variant) and one F.conv3d with the BN folded in), each as device
-   time (torch.profiler) and per call (CUDA events), the device time split
+4c. the training entry point, with the launch counts set to 0 just before
+   it and read just after: ``data.generate`` writes the JAX package's 4k
+   headline dataset (64^3, objects of 6-14 voxels, 1-5 of them, seed 0), cut
+   to 40 images, into a temporary directory, and ``cli.train.main`` trains
+   on it on the card with the recipe's flags (-b 8 -lr 0.003 -th 0.1 0.2
+   -bpl 3 --alpha 2 -a flip rotate90 zoom -sr cosine_annealed
+   --hard_negative_mining 1 -es 0), cut to -mi 24 (6 epochs of 4 steps),
+   float32, full width: every loss finite, 6 history entries with mAP, the
+   top-3 and ``last`` checkpoints, K1 once a validation batch and once a
+   train-metric step (K2, K3 never); one validation batch from ``last``
+   gives the plain NMS's detections; the bare gathered step is timed at the
+   same configuration beside the trainer's ms per step; then a resume from
+   ``last`` trains one more epoch. Times: generation, materialize, ms per
+   step by epoch, validation seconds by epoch, the peak memory.
+5. times on the card: K1 (at K = 1000, and at K = 3942 for N = 8 and 32),
+   K2 and K3 beside their plain versions and bounds (and K2 at layers
+   3/5/7 at batch 8 and layer 3 at batch 32 beside the cuDNN conv + BN +
+   ReLU it replaces, its first version (the direct variant) and one
+   F.conv3d with the BN folded in), each as device
+   time (torch.profiler; a kernel's the median of 3 rounds, beside the card's
+   SM clock) and per call (CUDA events), the device time split
    by kernel function (K1's mask and walk launches, K3's kernel) and K3's
    by block (chain prefixes at batch 8), the detect path
    for the four flag settings, end-to-end volumes/s at batch 1, 8 and 32 on
@@ -73,10 +95,12 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -84,14 +108,17 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from mslesions3d_tpu_torch.cli import train as train_cli
 from mslesions3d_tpu_torch.data.augment import AugmentConfig
+from mslesions3d_tpu_torch.data.datasets import SyntheticDataModule
+from mslesions3d_tpu_torch.data.generate import generate_dataset
 from mslesions3d_tpu_torch.kernels.build import build, find_nvcc
 from mslesions3d_tpu_torch.kernels.depthwise import (
     depthwise_bn_relu,
     fused_depthwise_bn_relu_cuda,
     plan_depthwise,
 )
-from mslesions3d_tpu_torch.kernels.nms import greedy_nms, greedy_nms_cuda
+from mslesions3d_tpu_torch.kernels.nms import greedy_nms, greedy_nms_cuda, plan_nms
 from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, plan_tail, tail_reference
 from mslesions3d_tpu_torch.models.ssd3d import SSD3D, SSD3DConfig, model_priors
 from mslesions3d_tpu_torch.ops.metrics import calculate_mAP
@@ -105,7 +132,10 @@ from mslesions3d_tpu_torch.serving import Detector, RequestBatcher
 from mslesions3d_tpu_torch.train import (
     create_train_state,
     eval_view,
+    load_checkpoint,
     make_eval_step,
+    make_gathered_eval_step,
+    make_gathered_train_step,
     make_train_step,
 )
 
@@ -129,11 +159,23 @@ FLAG_SETTINGS = {
     "both": dict(use_pallas=True, use_pallas_tail=True),
 }
 KERNELS = ("nms", "depthwise", "tail")
+# K1 past the warp walk: the 96^3 model's every prior (top_k >= 395), and the
+# first K past what one staged word of the wide walk holds (plan_nms)
+WIDE_K, FAR_K = 3942, 28545
 # the bench's training geometry (bench.py build_train) and its augmentation
 TRAIN = dict(n_classes=2, input_channels=1, input_size=(64, 64, 64), dtype="bfloat16", lr=1e-3,
              threshold=[0.1, 0.2])
 TRAIN_AUGMENT = dict(flip_axes=(0, 1, 2), rot90_planes=((1, 2),))
 TRAIN_BOXES = ((0.2, 0.2, 0.2, 0.5, 0.5, 0.5), (0.6, 0.6, 0.6, 0.8, 0.8, 0.8))
+# the JAX package's 4k headline recipe (quality_artifacts/README.md:41-44,
+# tools/quality_r5_campaign.sh:11): its dataset cut to 40 images, its
+# training flags cut to 24 steps (6 epochs of 4), full width, float32
+RECIPE_DATA = dict(num_images=40, image_size=(64, 64, 64), object_size=(6, 14),
+                   num_objects=(1, 5), seed=0)
+RECIPE_FLAGS = ["-b", "8", "-lr", "0.003", "-th", "0.1", "0.2", "-bpl", "3", "--alpha", "2",
+                "-a", "flip", "rotate90", "zoom", "-sr", "cosine_annealed",
+                "--hard_negative_mining", "1", "-es", "0"]
+RECIPE_STEPS = 24
 # K3 in bf16 against its plain version: share of differing elements per
 # emitted map (5, 7); tests/test_torch_port_tail.py sets out why
 TAIL_MAX_DIFFERING = (0.01, 0.15)
@@ -170,6 +212,14 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def clocks() -> str:
+    """The card's SM clock (now and its maximum), power draw and temperature."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
 def kernel_name(key: str) -> str:
     """A profiler row's kernel function, without namespace and arguments."""
     return key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
@@ -178,20 +228,40 @@ def kernel_name(key: str) -> str:
 def device_ms(fn, iters: int) -> tuple[float, dict]:
     """Mean device ms per call of the kernels fn launches, in total and by
     kernel function: their durations in a torch.profiler trace, host gaps
-    excluded."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    excluded. The profiler can lose kernel records (seen on the card: 298 of
+    300), which would shrink a plain sum; so each kernel function counts as
+    its mean duration over the records kept times its launches per call
+    (its records over ``iters``, rounded), and the records lost are logged.
+    A trace with no kernel at all is taken once more."""
+    for _ in range(2):
+        fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    check(rows, "the profiler saw no kernel on the card")
-    split = {}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if rows:
+            break
+        log("the profiler saw no kernel on the card; tracing once more")
+    check(rows, "the profiler saw no kernel on the card, twice")
+    split, lost = {}, 0
     for e in rows:
         name = kernel_name(e.key)
-        split[name] = split.get(name, 0.0) + e.self_device_time_total / iters / 1e3
+        per_call = max(1, round(e.count / iters))
+        lost += per_call * iters - e.count
+        split[name] = split.get(name, 0.0) + e.self_device_time_total / e.count * per_call / 1e3
+    if lost:
+        log(f"the profiler lost {lost} kernel records of {iters} calls; each kernel function "
+            "is timed by the mean of the records it kept")
     return sum(split.values()), split
+
+
+def device_ms_rounds(fn, iters: int, rounds: int = 3) -> tuple[list, dict]:
+    """device_ms in ``rounds`` traces: (the rounds' ms per call, sorted; the
+    median round's ms per call by kernel function)."""
+    results = sorted((device_ms(fn, iters) for _ in range(rounds)), key=lambda r: r[0])
+    return [total for total, _ in results], results[rounds // 2][1]
 
 
 def hmma_counts(library) -> dict:
@@ -270,19 +340,28 @@ def near_threshold_case():
     return boxes, np.ones(boxes.shape[:2], bool)
 
 
-def compare_nms(name, boxes, valid, max_overlap=0.5) -> int:
+def compare_nms(name, boxes, valid, max_overlap=0.5, plan=None) -> int:
     """Run K1 and the plain version on the same card tensors; returns mismatches."""
     boxes = torch.as_tensor(boxes, dtype=torch.float32, device="cuda").contiguous()
     valid = torch.as_tensor(valid, dtype=torch.bool, device="cuda").contiguous()
-    keep = greedy_nms_cuda(boxes, valid, max_overlap)
+    keep = greedy_nms_cuda(boxes, valid, max_overlap, plan=plan)
     torch.cuda.synchronize()
     plain = greedy_nms(boxes, valid, max_overlap)
     mismatches = int((keep != plain).sum())
+    plan = plan or plan_nms(boxes.shape[1])
     log(f"K1 vs plain [{name}]: N={boxes.shape[0]} K={boxes.shape[1]} "
         f"valid share {float(valid.float().mean()):.3f} kept {int(keep.sum())} "
-        f"mismatches {mismatches}")
+        f"mismatches {mismatches} ({describe_nms(plan)})")
     check(mismatches == 0, f"K1 disagrees with the plain NMS on {name}")
     return mismatches
+
+
+def describe_nms(plan) -> str:
+    walk = ("warp walk" if plan.walk == "warp" else
+            f"wide walk, {plan.stages} staged words" if plan.stages else
+            "wide walk, kept rows from global memory")
+    return (f"{walk}, {plan.smem:,} B shared memory, mask grid {plan.mask_grid[0]} x "
+            f"{plan.mask_grid[1]} blocks a row")
 
 
 def nms_bound(valid: torch.Tensor):
@@ -703,6 +782,126 @@ def drive_training(card, counters) -> dict:
             "step_ms": timings, "eval_ms": float(np.median(eval_ms)), "peak": peak}
 
 
+def drive_training_entry(card, counters) -> dict:
+    """Phase 4c: the training entry point. Generate the JAX package's 4k
+    headline dataset (cut to 40 images), train through ``cli.train`` on the
+    card with the recipe's flags (cut to 24 steps, full width), check what
+    it wrote, hold one validation batch's detections against the plain NMS,
+    time the bare step at the same configuration, and resume one epoch."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root, logs = Path(tmp) / "data", Path(tmp) / "logs"
+        t0 = time.perf_counter()
+        generate_dataset(root, num_processes=1, **RECIPE_DATA)
+        gen_s = time.perf_counter() - t0
+        log(f"generated {RECIPE_DATA['num_images']} volumes of "
+            f"{RECIPE_DATA['image_size']} in {gen_s:.3f} s (one process) [{card}]")
+        args = ["-d", str(root), *RECIPE_FLAGS, "-mi", str(RECIPE_STEPS), "-ld", str(logs),
+                "--device", "cuda"]
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = train_cli.main([*args, "-en", "recipe"])
+        fit_s = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+        peak = torch.cuda.max_memory_allocated()
+        hist, timings = result["history"], result["timings"]
+        epochs = timings["epochs"]
+        losses = [v for e in epochs for v in e["train_losses"]]
+        log(f"cli.train: {len(hist)} epochs, {len(losses)} steps in {fit_s:.3f} s (set-up, "
+            f"materialize {timings['materialize_s']:.3f} s, and checkpoints included); "
+            f"training losses {[round(v, 4) for v in losses]}; avg_val_loss "
+            f"{[round(h['avg_val_loss'], 4) for h in hist]}; mAP@0.1 on validation "
+            f"{[round(h['mAP/validation_IoU_0.1'], 4) for h in hist]}; peak memory allocated "
+            f"{peak / 2**30:.3f} GiB [{card}]")
+        check(len(hist) == RECIPE_STEPS // 4 and len(losses) == RECIPE_STEPS,
+              f"cli.train ran {len(hist)} epochs and {len(losses)} steps")
+        check(all(np.isfinite(losses)) and all(np.isfinite(h["avg_val_loss"]) for h in hist),
+              "a non-finite loss in cli.train")
+        check(all("mAP/validation_IoU_0.1" in h and "mAP/validation_IoU_0.5" in h for h in hist),
+              "an epoch without validation mAP")
+        ckpt_dir = Path(result["checkpoint_dir"])
+        names = sorted(p.name for p in ckpt_dir.iterdir())
+        check(names[-1] == "last" and sum(n.startswith("checkpoint-") for n in names) == 3,
+              f"checkpoints {names}")
+        # K1: one launch a validation batch (8 volumes: one batch) and one a
+        # train step in the train-metric epochs (0, 2, 4); K2, K3 stay off
+        expected = len(hist) + sum(e["steps"] for e in epochs if e["epoch"] % 2 == 0)
+        log(f"cli.train launches: K1 {launches[0]} (expected {expected}: {len(hist)} validation "
+            f"batches and the train-metric epochs' steps), K2 {launches[1]}, K3 {launches[2]}; "
+            f"checkpoints {names}")
+        check(launches[0] == expected, "K1 did not launch once per validation batch and "
+              "train-metric step")
+        check(launches[1] == launches[2] == 0, "K2 or K3 launched in training")
+        per_step = [e["train_s"] / e["steps"] * 1e3 for e in epochs]
+        val_s = [e["val_s"] for e in epochs]
+        log(f"trainer wall ms per step by epoch {[round(v, 3) for v in per_step]} (epochs 0, "
+            f"2, 4 take the instrumented step with detections), validation s by epoch "
+            f"{[round(v, 3) for v in val_s]} [{card}]")
+
+        # one validation batch from the last checkpoint: its detections (K1)
+        # against the plain NMS on the same locs and scores
+        config = SSD3DConfig.from_json_dict(
+            json.loads((ckpt_dir / "last" / "meta.json").read_text())["config"])
+        model = SSD3D(config)
+        priors = torch.from_numpy(model_priors(config)).cuda()
+        template = create_train_state(config, seed=0, device="cuda")
+        _, state, _ = load_checkpoint(ckpt_dir / "last", state_template=template)
+        dm = SyntheticDataModule(root, n_classes=1, batch_size=8, max_objects=16)
+        dm.setup("fit")
+        host_val, host_train = dm.materialize(dm.testsubs), dm.materialize(dm.trainsubs)
+        val = {k: torch.from_numpy(v).cuda() for k, v in host_val.items()
+               if isinstance(v, np.ndarray)}
+        for min_score in (config.min_score, 0.05):
+            low = dataclasses.replace(config, min_score=min_score)
+            with tapped(model) as outs:
+                ev = make_gathered_eval_step(low, model, priors, hard_negative_mining=True)(
+                    eval_view(state), val, np.arange(8), np.ones(8, bool))
+            check_plain_detections(f"trainer's validation batch at min_score {min_score}",
+                                   ev["detections"], *outs[0], priors, low)
+
+        # the bare gathered step at the recipe's configuration: the loop's
+        # host cost is the trainer's ms per step less this
+        data = {k: torch.from_numpy(v).cuda() for k, v in host_train.items()
+                if isinstance(v, np.ndarray)}
+        step = make_gathered_train_step(config, model, priors,
+                                        AugmentConfig.from_names(["flip", "rotate90", "zoom"]),
+                                        hard_negative_mining=True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        idx = torch.arange(8, device="cuda")
+        bare = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                state, _m = step(state, data, idx, gen)
+            end.record()
+            torch.cuda.synchronize()
+            bare.append(start.elapsed_time(end) / 10)
+        log(f"bare gathered train step at the recipe's configuration (float32 64^3 width 1.0, "
+            f"batch 8, augmentation, hard negative mining): median {float(np.median(bare)):.3f} "
+            f"ms, rounds {[round(v, 3) for v in bare]} (CUDA events) [{card}]")
+
+        # resume from `last` for one more epoch
+        for c in counters:
+            c.launches = 0
+        resumed = train_cli.main([*args, "-en", "recipe", "-cp", str(ckpt_dir / "last"),
+                                  "-me", str(len(hist) + 1)])
+        r_hist = resumed["history"]
+        r_losses = resumed["timings"]["epochs"][0]["train_losses"]
+        log(f"resumed from last: epochs {[h['epoch'] for h in r_hist]}, losses "
+            f"{[round(v, 4) for v in r_losses]}, avg_val_loss {r_hist[0]['avg_val_loss']:.4f}, "
+            f"K1 launches {greedy_nms_cuda.launches}")
+        check([h["epoch"] for h in r_hist] == [len(hist)] and len(r_losses) == 4
+              and all(np.isfinite(r_losses)), "the resumed run did not train one more epoch")
+        check(greedy_nms_cuda.launches == 5, "the resumed metric epoch did not launch K1 5 times")
+    log(f"training entry phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "gen_s": gen_s, "materialize_s": timings["materialize_s"],
+            "fit_s": fit_s, "per_step_ms": per_step, "val_s": val_s, "peak": peak,
+            "bare_step_ms": float(np.median(bare)), "bare_rounds": bare}
+
+
 def profile_training(train, card) -> None:
     for b, calls in ((8, 3), (64, 2)):
         def one_step(b=b):
@@ -752,6 +951,27 @@ def main() -> int:
     mismatches += compare_nms("prefix 90/200/384", *prefix_case(rng))
     mismatches += compare_nms("near threshold", *near_threshold_case())
     mismatches += compare_nms("random N=128 K=1000", *random_case(rng))
+    # past the warp walk's 2048: the 96^3 headline's K = 3942 on every wide
+    # walk, and the first K past what one staged word holds (rows from
+    # global memory; one row, since the plain version holds K x K pairs)
+    mismatches += compare_nms("random N=8 K=3942", *random_case(rng, n=8, k=WIDE_K))
+    for stages in (2, 1, 0):
+        mismatches += compare_nms(f"random N=4 K=3942, forced to {stages} staged words",
+                                  *random_case(rng, n=4, k=WIDE_K),
+                                  plan=plan_nms(WIDE_K, walk="wide", stages=stages))
+    far = [torch.as_tensor(a, device="cuda").contiguous()
+           for a in clustered_case(rng, n=1, k=FAR_K)]
+    far[0] = far[0].float()
+    mismatches += compare_nms(f"clustered N=1 K={FAR_K}", *far)
+    far_ms = {"kernel_ms": device_ms(partial(greedy_nms_cuda, *far, 0.5), iters=5)[0],
+              "kernel_call_ms": cuda_ms(partial(greedy_nms_cuda, *far, 0.5), iters=5),
+              "plain_call_ms": cuda_ms(partial(greedy_nms, *far, 0.5), iters=1, warmup=0)}
+    far_bound = nms_bound(far[1])
+    log(f"K1 N=1 K={FAR_K}: kernel {far_ms['kernel_ms']:.4f} ms device time "
+        f"({far_ms['kernel_call_ms']:.4f} per call), plain {far_ms['plain_call_ms']:.3f} ms per "
+        f"call, bound {far_bound[0]:.5f} ms by {far_bound[1]} [{card}]")
+    del far
+    torch.cuda.empty_cache()
 
     config = SSD3DConfig.create(**HEADLINE)
     detectors = {name: Detector(SSD3DConfig.create(**HEADLINE, **flags), device="cuda", seed=0,
@@ -863,6 +1083,29 @@ def main() -> int:
     check(k3_fused <= 2 * k1_fused, "K3 launched more than 2 kernels per forward")
     log(f"detections per volume: {check_served(requests, served_fused, config).tolist()}")
 
+    # top_k = 395: K = min(3950, 3942) = every prior, past the warp walk
+    wide_cand, k1_wide = {}, 0
+    wide_config = SSD3DConfig.create(**dict(HEADLINE, top_k=395))
+    for name in ("off", "both"):
+        wide = Detector(SSD3DConfig.create(**dict(HEADLINE, top_k=395), **FLAG_SETTINGS[name]),
+                        detector.model.state_dict(), device="cuda")
+        greedy_nms_cuda.launches = 0
+        with torch.inference_mode(), tapped(wide.model) as outs:
+            det = wide.detect(volumes(8).to(config.compute_dtype))
+        k1_wide += greedy_nms_cuda.launches
+        check(greedy_nms_cuda.launches == 1, f"Detector(top_k=395) [{name}] did not launch K1 once")
+        with torch.inference_mode():
+            check_plain_detections(f"Detector(top_k=395) [{name}], batch 8", det, *outs[0],
+                                   wide.priors, wide_config)
+            if name == "off":
+                for b in (8, 32):
+                    locs, scores = wide.model(volumes(b).to(config.compute_dtype))
+                    wide_cand[b] = nms_candidates(locs, scores, wide.priors,
+                                                  n_classes=config.n_classes,
+                                                  min_score=config.min_score, top_k=395)
+        check(int(det["count"].sum()) > 0, f"Detector(top_k=395) [{name}] found nothing")
+        del wide
+
     kw = dict(n_classes=config.n_classes, top_k=config.top_k)
     with torch.inference_mode():
         x = volumes(8).to(config.compute_dtype)
@@ -913,6 +1156,8 @@ def main() -> int:
 
     # 4b. the training path
     train = drive_training(card, counters)
+    # 4c. the training entry point
+    entry = drive_training_entry(card, counters)
 
     # 5. times on the card. Each kernel, its plain version and (for K2) the
     # cuDNN sequence it replaces are timed twice: per call with CUDA events
@@ -938,6 +1183,16 @@ def main() -> int:
             time_calls(f"K1 N={b} K=1000", bound_ms, bound_by,
                        kernel=(partial(greedy_nms_cuda, boxes, valid, 0.5), 50),
                        plain=(partial(greedy_nms, boxes, valid, 0.5), 5))
+        for b in (8, 32):  # top_k = 395: the wide walk on the 96^3 model's candidates
+            boxes, _, valid = wide_cand[b]
+            boxes = boxes.contiguous()
+            bound_ms, bound_by, ops, nbytes = nms_bound(valid)
+            log(f"K1 bound N={b} K={WIDE_K} valid share {float(valid.float().mean()):.3f}: "
+                f"{bound_ms:.5f} ms by {bound_by} ({ops:.3e} fp32 ops at 67 TFLOP/s; {nbytes:,} "
+                f"bytes at 3.35 TB/s); {describe_nms(plan_nms(WIDE_K))}")
+            time_calls(f"K1 N={b} K={WIDE_K}", bound_ms, bound_by,
+                       kernel=(partial(greedy_nms_cuda, boxes, valid, 0.5), 50),
+                       plain=(partial(greedy_nms, boxes, valid, 0.5), 2))
         for (b, layer), (x, w, g, bt) in dw_cases.items():
             plan = plan_depthwise(x.dtype, x.shape)
             log(f"K2 plan at layer {layer}, batch {b}: {describe(plan)}")
@@ -1003,15 +1258,21 @@ def main() -> int:
             log(f"Detector.predict [{name}] batch {b}: {b * iters / dt:.1f} volumes/s "
                 f"({dt / iters * 1e3:.2f} ms per call, numpy in and out) [{card}]")
 
-    # profiled last: the profiler may leave tracing overhead behind it
+    # profiled last: the profiler may leave tracing overhead behind it. A
+    # kernel's device time is the median of 3 traces (its split from the
+    # median one), beside the card's clocks.
+    log(f"clocks before the device timings: {clocks()}")
     with torch.inference_mode():
         for key, t in timed.items():
             for field, (fn, n) in t.pop("fns").items():
-                t[f"{field}_ms"], split = device_ms(fn, iters=n)
-                if field == "kernel":
-                    t["split"] = split
-                    log(f"{key}: device ms per call by kernel function: " + ", ".join(
-                        f"{name} {ms:.4f}" for name, ms in split.items()) + f" [{card}]")
+                if field != "kernel":
+                    t[f"{field}_ms"], _ = device_ms(fn, iters=n)
+                    continue
+                rounds, t["split"] = device_ms_rounds(fn, iters=n)
+                t["kernel_ms"], t["kernel_rounds_ms"] = rounds[1], rounds
+                log(f"{key}: device ms per call by kernel function (median of rounds "
+                    f"{', '.join(f'{r:.4f}' for r in rounds)}): " + ", ".join(
+                        f"{name} {ms:.4f}" for name, ms in t["split"].items()) + f" [{card}]")
             unfused = (f", cuDNN depthwise conv + BN + ReLU {t['unfused_ms']:.4f} ms "
                        f"({t['unfused_call_ms']:.4f} per call), the first version (direct "
                        f"variant) {t['direct_ms']:.4f} ms ({t['direct_call_ms']:.4f} per call), "
@@ -1055,8 +1316,25 @@ def main() -> int:
         "bound_by": timed["K1 N=8 K=1000"]["bound_by"],
         "library_ms": None,
         "device_split_ms": timed["K1 N=8 K=1000"]["split"],
+        "rounds_ms": timed["K1 N=8 K=1000"]["kernel_rounds_ms"],
         "ms_n128": timed["K1 N=128 K=1000"]["kernel_ms"],
         "device_split_ms_n128": timed["K1 N=128 K=1000"]["split"],
+        "launches_top_k_395": k1_wide,
+        "launches_training_entry": entry["launches"][0],
+        "ms_k3942": timed[f"K1 N=8 K={WIDE_K}"]["kernel_ms"],
+        "rounds_ms_k3942": timed[f"K1 N=8 K={WIDE_K}"]["kernel_rounds_ms"],
+        "call_ms_k3942": timed[f"K1 N=8 K={WIDE_K}"]["kernel_call_ms"],
+        "plain_ms_k3942": timed[f"K1 N=8 K={WIDE_K}"]["plain_ms"],
+        "bound_ms_k3942": timed[f"K1 N=8 K={WIDE_K}"]["bound_ms"],
+        "device_split_ms_k3942": timed[f"K1 N=8 K={WIDE_K}"]["split"],
+        "ms_k3942_n32": timed[f"K1 N=32 K={WIDE_K}"]["kernel_ms"],
+        "plain_ms_k3942_n32": timed[f"K1 N=32 K={WIDE_K}"]["plain_ms"],
+        "bound_ms_k3942_n32": timed[f"K1 N=32 K={WIDE_K}"]["bound_ms"],
+        "ms_k28545_n1": far_ms["kernel_ms"],
+        "plain_call_ms_k28545_n1": far_ms["plain_call_ms"],
+        "bound_ms_k28545_n1": far_bound[0],
+        "plan_k3942": describe_nms(plan_nms(WIDE_K)),
+        "plan_k28545": describe_nms(plan_nms(FAR_K)),
         "shape": "N=8 K=1000: the served batch of 8, candidates of the 96^3 model",
     }, {
         "name": "fused_depthwise_bn_relu",
@@ -1122,6 +1400,11 @@ def main() -> int:
     log("training: " + json.dumps({
         "step_ms": train["step_ms"], "eval_step_ms_batch8": train["eval_ms"],
         "peak_bytes": train["peak"], "card": card}))
+    log("training entry: " + json.dumps({
+        "generate_s": entry["gen_s"], "materialize_s": entry["materialize_s"],
+        "cli_train_s": entry["fit_s"], "trainer_ms_per_step": entry["per_step_ms"],
+        "bare_step_ms": entry["bare_step_ms"], "validation_s": entry["val_s"],
+        "peak_bytes": entry["peak"], "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,7 +6,9 @@ scores (B, P, n_classes). Every TPU kernel on a ported path becomes a CUDA
 kernel written for Hopper (``csrc/``), beside a plain PyTorch version that
 CPU tensors use. It serves (``Detector``) and trains (``train``: the
 reference's optimizer, MultiBox matching and loss, device-side
-augmentation, train / eval / predict steps). This package never imports
+augmentation, train / eval / predict steps, the ``Trainer`` loop with
+checkpoints; ``data``: the NIfTI and synthetic pipeline;
+``python -m mslesions3d_tpu_torch.cli.train``). This package never imports
 JAX.
 """
 

@@ -23,9 +23,9 @@
 //      transposed (diag_t: word i holds the j < i of the same word that
 //      suppress i). Blocks whose columns lie past the last valid candidate
 //      do nothing (the TPU kernel's data-adaptive bound).
-//   2. nms_walk_kernel: one block of 4 warps per row; warp 0 resolves 64
-//      candidates (one word) at a time. The "removed" bitset has at most 32
-//      words, one per lane (K <= 2048). For word w:
+//   2. nms_walk_kernel (K <= 2048, "warp"): one block of 4 warps per row;
+//      warp 0 resolves 64 candidates (one word) at a time. The "removed"
+//      bitset has at most 32 words, one per lane. For word w:
 //      a. the word's live candidates are the valid ones no earlier kept
 //         candidate removed;
 //      b. lane l holds the transposed diagonal words of candidates 64w+l and
@@ -42,6 +42,19 @@
 //      number of words so every copy is aligned). The walk stops at the
 //      row's last valid candidate. Its shared-memory limit is raised once
 //      per process, not on every call.
+//   3. nms_walk_wide_kernel<S> (K > 2048, "wide"): the same walk for any K.
+//      The removed bitset, seeded with the invalid candidates, lives in
+//      shared memory, nw words long; in step c lane l takes words c = w+1+l,
+//      w+1+l+32, ...; the last valid candidate is a block-wide atomicMax
+//      over all words. The host
+//      plan (plan_nms in kernels/nms.py) picks S, the staged words: 3 while
+//      three buffers of 64 rows fit a block's 227 KB (K <= 9472), then 2
+//      (K <= 14336), then 1 (K <= 28544); past that S = 0 and the kept rows
+//      are ORed straight from global memory (L2-resident), only the rows
+//      actually kept. Each S is its own instantiation, since cp.async's
+//      wait count is a constant.
+//   The mask launch spreads the triangle of blocks over gridDim.y and
+//   gridDim.z (each at most 65535), so no grid dimension overflows at any K.
 // The answer of greedy NMS is unique, so this gives the fixpoint's result.
 //
 // Exactness. The keep mask must equal the plain torch version bit for bit,
@@ -83,9 +96,11 @@ __global__ void nms_mask_kernel(const float* __restrict__ boxes,
                                 unsigned long long* __restrict__ mask,
                                 unsigned long long* __restrict__ diag_t, int k, int nw,
                                 int nwp, float t) {
-  // blockIdx.y enumerates the blocks on and above the diagonal, row by row
+  // blockIdx.y + gridDim.y * blockIdx.z enumerates the blocks on and above
+  // the diagonal, row by row; the grid may round the triangle up
   const int n = blockIdx.x;
-  int rb = 0, cb = blockIdx.y;
+  int rb = 0, cb = blockIdx.y + gridDim.y * blockIdx.z;
+  if (cb >= nw * (nw + 1) / 2) return;  // the same for the whole block
   while (cb >= nw - rb) cb -= nw - rb++;
   cb += rb;
   const int tid = threadIdx.x;
@@ -294,37 +309,205 @@ nms_walk_kernel(const bool* __restrict__ valid, const unsigned long long* __rest
   for (int i = words * kWord + tid; i < k; i += kWalkThreads) out[i] = false;
 }
 
+// Shared memory of the wide walk with S staged words: S buffers of 64 rows
+// of nwp words and S diagonal blocks, then the removed bitset (nwp words),
+// the kept word and the count. kernels/nms.py::plan_nms mirrors this.
+size_t wide_smem_bytes(int stages, int nwp) {
+  return (static_cast<size_t>(stages) * kWord * (nwp + 1) + nwp + 2) * sizeof(unsigned long long);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kWalkThreads)
+nms_walk_wide_kernel(const bool* __restrict__ valid, const unsigned long long* __restrict__ mask,
+                     const unsigned long long* __restrict__ diag_t, bool* __restrict__ keep,
+                     int k, int nwp) {
+  extern __shared__ __align__(16) unsigned long long smem[];
+  unsigned long long* rows = smem;                        // [S][kWord][nwp]
+  unsigned long long* diag = rows + S * kWord * nwp;     // [S][kWord]
+  unsigned long long* removed = diag + S * kWord;        // [nwp]
+  unsigned long long* kept_word = removed + nwp;         // [1]
+  int* count_sh = reinterpret_cast<int*>(kept_word + 1);  // [1]
+  const int n = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = (k + kWord - 1) / kWord;
+  const bool* v = valid + static_cast<size_t>(n) * k;
+  const unsigned long long* m = mask + static_cast<size_t>(n) * k * nwp;
+  const unsigned long long* dt = diag_t + static_cast<size_t>(n) * nwp * kWord;
+  bool* out = keep + static_cast<size_t>(n) * k;
+
+  // word c of the removed bitset = its invalid candidates; count = the last
+  // valid candidate + 1, over all words
+  if (tid == 0) *count_sh = 0;
+  __syncthreads();
+  for (int c = warp; c < nw; c += kWalkThreads / 32) {
+    const int i = c * kWord + lane;
+    const unsigned long long bits =
+        static_cast<unsigned long long>(__ballot_sync(kFull, i < k && v[i])) |
+        (static_cast<unsigned long long>(__ballot_sync(kFull, i + 32 < k && v[i + 32])) << 32);
+    if (lane == 0) {
+      removed[c] = ~bits;
+      if (bits) atomicMax(count_sh, c * kWord + kWord - __clzll(static_cast<long long>(bits)));
+    }
+  }
+  __syncthreads();
+  const int count = *count_sh;
+  const int words = (count + kWord - 1) / kWord, words_even = (words + 1) & ~1;
+
+  // Rows of word w (up to `count`), words c0 = (w+1) & ~1 .. words_even-1 of
+  // each, and the word's diagonal block, into buffer w % S.
+  auto stage = [&](int w) {
+    if constexpr (S > 0) {
+      if (w < words) {
+        const int sb = w % S, c0 = (w + 1) & ~1, pairs = (words_even - c0) / 2;
+        const int nr = min(kWord, count - w * kWord);
+        unsigned long long* dst = rows + sb * kWord * nwp;
+        const unsigned long long* src = m + static_cast<size_t>(w) * kWord * nwp;
+        for (int idx = tid; idx < nr * pairs; idx += kWalkThreads) {
+          const int r = idx / pairs, c = c0 + 2 * (idx - r * pairs);
+          cp_async16(dst + r * nwp + c, src + static_cast<size_t>(r) * nwp + c);
+        }
+        if (tid < kWord / 2) cp_async16(diag + sb * kWord + 2 * tid, dt + w * kWord + 2 * tid);
+      }
+      cp_async_commit();  // one group per word, empty or not
+    }
+  };
+
+  for (int s = 0; s + 1 < S; ++s) stage(s);
+  for (int w = 0; w < words; ++w) {
+    const int sb = w % (S > 0 ? S : 1);
+    if constexpr (S >= 2) {
+      cp_async_wait<S - 2>();  // word w's group has landed
+      __syncthreads();         // its rows and `removed` are visible; buffer (w - 1) % S is free
+      stage(w + S - 1);
+    } else if constexpr (S == 1) {
+      __syncthreads();  // the one buffer is free; `removed` is visible
+      stage(w);
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      __syncthreads();  // `removed` is visible
+    }
+    if (warp == 0) {
+      // the word's greedy order: fixpoint rounds from kept = live
+      unsigned long long col_lo, col_hi;
+      if constexpr (S > 0) {
+        col_lo = diag[sb * kWord + lane];
+        col_hi = diag[sb * kWord + 32 + lane];
+      } else {
+        col_lo = dt[w * kWord + lane];
+        col_hi = dt[w * kWord + 32 + lane];
+      }
+      const unsigned long long live = ~removed[w];
+      unsigned long long kept = live;
+      while (true) {
+        const bool lo = ((live >> lane) & 1ull) && !(col_lo & kept);
+        const bool hi = ((live >> (lane + 32)) & 1ull) && !(col_hi & kept);
+        const unsigned long long next =
+            static_cast<unsigned long long>(__ballot_sync(kFull, lo)) |
+            (static_cast<unsigned long long>(__ballot_sync(kFull, hi)) << 32);
+        if (next == kept) break;
+        kept = next;
+      }
+      if (lane == 0) *kept_word = kept;
+      const int i = w * kWord + lane;
+      if (i < k) out[i] = (kept >> lane) & 1ull;
+      if (i + 32 < k) out[i + 32] = (kept >> (lane + 32)) & 1ull;
+    }
+    __syncthreads();  // the kept word is visible
+
+    // warp q ORs kept rows 16q .. 16q+15 of word w into the later words'
+    // removed bits; lane l takes words w+1+l, w+1+l+32, ...
+    const unsigned long long bits = (*kept_word >> (16 * warp)) & 0xffffull;
+    if (bits) {
+      for (int c = w + 1 + lane; c < words; c += 32) {
+        unsigned long long acc = 0ull;
+        if constexpr (S > 0) {
+          const unsigned long long* src = rows + (sb * kWord + 16 * warp) * nwp + c;
+#pragma unroll
+          for (int r = 0; r < 16; ++r) acc |= src[r * nwp] & (0ull - ((bits >> r) & 1ull));
+        } else {
+          const unsigned long long* src = m + (static_cast<size_t>(w) * kWord + 16 * warp) * nwp + c;
+          for (unsigned long long b = bits; b; b &= b - 1) {
+            acc |= src[static_cast<size_t>(__ffsll(static_cast<long long>(b)) - 1) * nwp];
+          }
+        }
+        if (acc) atomicOr(&removed[c], acc);  // rows past `count` hold kept bit 0
+      }
+    }
+  }
+  for (int i = words * kWord + tid; i < k; i += kWalkThreads) out[i] = false;
+}
+
+constexpr int kMaxWideStages = 3;
+constexpr int kMaxSmem = 232448;  // a Hopper block's opt-in maximum
+bool g_wide_opted_in[kMaxWideStages + 1] = {};  // per instantiation, once per process
+
+template <int S>
+cudaError_t launch_wide(int n, int k, int nwp, const bool* valid, const unsigned long long* mask,
+                        const unsigned long long* diag_t, bool* keep, cudaStream_t s) {
+  const size_t smem = wide_smem_bytes(S, nwp);
+  if (!g_wide_opted_in[S]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_walk_wide_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    g_wide_opted_in[S] = true;
+  }
+  nms_walk_wide_kernel<S><<<n, kWalkThreads, smem, s>>>(valid, mask, diag_t, keep, k, nwp);
+  return cudaGetLastError();
+}
+
 bool g_walk_opted_in = false;  // the attribute is set once per process
 
 }  // namespace
 
 extern "C" {
 
+// Shared memory of the walk for k candidates: the warp walk (stages < 0)
+// or the wide walk with `stages` staged words.
+long long msl_nms_walk_smem_bytes(int k, int stages) {
+  const int nwp = ((k + kWord - 1) / kWord + 1) & ~1;
+  return static_cast<long long>(stages < 0 ? walk_smem_bytes(nwp) : wide_smem_bytes(stages, nwp));
+}
+
 // boxes (n, k, 6) float32, valid (n, k) bool, mask (n, k, nwp) and diag_t
 // (n, nwp, 64) 64-bit scratch with nwp = ceil(k/64) rounded up to even,
-// keep (n, k) bool; all contiguous on the current device. Launches on
-// `stream` and does not synchronise. Returns a cudaError_t.
+// keep (n, k) bool; all contiguous on the current device. `stages` < 0
+// takes the warp walk (k <= 2048), 0-3 the wide walk with that many staged
+// words (kernels/nms.py::plan_nms). Launches on `stream` and does not
+// synchronise. Returns a cudaError_t.
 int msl_greedy_nms(const void* boxes, const void* valid, void* mask, void* diag_t, void* keep,
-                   int n, int k, float max_overlap, void* stream) {
+                   int n, int k, float max_overlap, int stages, void* stream) {
   const int nw = (k + kWord - 1) / kWord, nwp = (nw + 1) & ~1;
-  if (n <= 0 || k <= 0 || nw > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ntri = static_cast<long long>(nw) * (nw + 1) / 2;
+  const long long gy = ntri < 65535 ? ntri : 65535, gz = (ntri + gy - 1) / gy;
+  if (n <= 0 || k <= 0 || gz > 65535 || stages > kMaxWideStages ||
+      (stages < 0 && nw > kMaxWords) ||
+      (stages >= 0 && wide_smem_bytes(stages, nwp) > static_cast<size_t>(kMaxSmem))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool* v = static_cast<const bool*>(valid);
+  auto* m = static_cast<unsigned long long*>(mask);
+  auto* dt = static_cast<unsigned long long*>(diag_t);
+  bool* out = static_cast<bool*>(keep);
+  nms_mask_kernel<<<dim3(n, static_cast<unsigned>(gy), static_cast<unsigned>(gz)), kWord, 0, s>>>(
+      static_cast<const float*>(boxes), v, m, dt, k, nw, nwp, max_overlap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (stages) {
+    case 0: return static_cast<int>(launch_wide<0>(n, k, nwp, v, m, dt, out, s));
+    case 1: return static_cast<int>(launch_wide<1>(n, k, nwp, v, m, dt, out, s));
+    case 2: return static_cast<int>(launch_wide<2>(n, k, nwp, v, m, dt, out, s));
+    case 3: return static_cast<int>(launch_wide<3>(n, k, nwp, v, m, dt, out, s));
+    default: break;
+  }
   if (!g_walk_opted_in) {
     err = cudaFuncSetAttribute(nms_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(walk_smem_bytes(kMaxWords)));
     if (err != cudaSuccess) return static_cast<int>(err);
     g_walk_opted_in = true;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nms_mask_kernel<<<dim3(n, nw * (nw + 1) / 2), kWord, 0, s>>>(
-      static_cast<const float*>(boxes), static_cast<const bool*>(valid),
-      static_cast<unsigned long long*>(mask), static_cast<unsigned long long*>(diag_t), k, nw,
-      nwp, max_overlap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nms_walk_kernel<<<n, kWalkThreads, walk_smem_bytes(nwp), s>>>(
-      static_cast<const bool*>(valid), static_cast<const unsigned long long*>(mask),
-      static_cast<const unsigned long long*>(diag_t), static_cast<bool*>(keep), k, nwp);
+  nms_walk_kernel<<<n, kWalkThreads, walk_smem_bytes(nwp), s>>>(v, m, dt, out, k, nwp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,8 +16,12 @@ one warp's ballots resolve the greedy order inside the word, then four
 warps OR the kept rows into the later words, rows that were staged into
 shared memory while the words before resolved. The TPU design's bf16 KxK
 matrix in fast memory does not fit a block's shared memory at K = 1000; the
-bitmask is 8x smaller, and the walk holds only three words' rows at a
-time. The source has the details.
+bitmask is 8x smaller, and the walk holds only a few words' rows at a time.
+:func:`plan_nms` picks the walk from K: up to 2048 candidates the "warp"
+walk keeps the removed bitset in one warp's lanes; past that the "wide"
+walk keeps it in shared memory and stages 3, 2 or 1 words of rows, as many
+as fit, or, past what one word's rows take, reads the kept rows from global
+memory. The source has the details.
 
 :func:`greedy_nms` is the plain version: the same function as a fixpoint
 over a boolean suppression matrix, on any leading batch shape. The wrapper
@@ -28,21 +32,87 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from ..ops.boxes import pairwise_iou
 from .build import load_library
 
-# The walking warp holds one 64-candidate word of the removed bitset per
-# lane: 32 words, 2048 candidates.
-MAX_K = 32 * 64
+SMEM_MAX = 232_448  # a Hopper block's opt-in maximum of shared memory
+GRID_YZ_MAX = 65_535  # gridDim.y and gridDim.z
+# the warp walk holds one 64-candidate word of the removed bitset per lane
+# of its walking warp: 32 words, 2048 candidates
+WARP_WALK_WORDS = 32
+WIDE_STAGES = (3, 2, 1, 0)
+
+
+@dataclass(frozen=True)
+class NmsPlan:
+    """How :func:`greedy_nms_cuda` runs K candidates (see :func:`plan_nms`).
+
+    ``walk`` is "warp" or "wide"; ``stages`` the words of mask rows the wide
+    walk stages in shared memory ahead of the one it resolves (0: it reads
+    the kept rows from global memory); ``smem`` the walk's dynamic shared
+    memory in bytes; ``mask_grid`` the mask launch's (y, z) blocks per row.
+    """
+
+    walk: str
+    stages: int
+    smem: int
+    mask_grid: tuple
 
 
 def mask_words(k: int) -> int:
     """Words of 64 bits per mask row: ceil(k / 64), rounded up to even so
     that every row starts on 16 bytes for the walk's copies."""
     return -(-k // 128) * 2
+
+
+def walk_smem_bytes(k: int, walk: str, stages: int = 3) -> int:
+    """csrc/nms.cu's walk_smem_bytes (warp) and wide_smem_bytes (wide)."""
+    nwp = mask_words(k)
+    if walk == "warp":  # three buffers of 64 rows and of one diagonal block
+        return 3 * 64 * (nwp + 1) * 8
+    # stages buffers of 64 rows and diagonal blocks, the removed bitset, the
+    # kept word and the count
+    return (stages * 64 * (nwp + 1) + nwp + 2) * 8
+
+
+@functools.cache
+def plan_nms(k: int, *, walk: str | None = None, stages: int | None = None) -> NmsPlan:
+    """The walk for K candidates a row, and the mask launch's grid.
+
+    Pure Python: it runs without a card. The warp walk takes K <= 2048 (32
+    words). The wide walk takes any K, with the most staged words of
+    ``WIDE_STAGES`` whose buffers fit ``SMEM_MAX``: 3 up to K = 9472, 2 up
+    to 14336, 1 up to 28544, then 0. The mask launch's triangle of nw(nw+1)/2
+    blocks a row (nw = ceil(K/64)) is spread over gridDim.y and gridDim.z,
+    each at most 65535. ``walk`` and ``stages`` force a choice (the tests
+    run every walk at small K); one that does not fit raises.
+    """
+    if k <= 0:
+        raise ValueError(f"plan_nms: K={k}")
+    nw = -(-k // 64)
+    tri = nw * (nw + 1) // 2
+    gy = min(tri, GRID_YZ_MAX)
+    grid = (gy, -(-tri // gy))
+    if grid[1] > GRID_YZ_MAX:
+        raise ValueError(f"plan_nms: K={k} needs more than 65535 x 65535 mask blocks a row")
+    walk = walk or ("warp" if nw <= WARP_WALK_WORDS else "wide")
+    if walk == "warp":
+        if nw > WARP_WALK_WORDS or stages not in (None, 3):
+            raise ValueError(f"plan_nms: the warp walk takes K <= 2048 and 3 stages, not K={k}")
+        return NmsPlan("warp", 3, walk_smem_bytes(k, "warp"), grid)
+    if walk != "wide":
+        raise ValueError(f"plan_nms: walk {walk!r}; 'warp' or 'wide'")
+    options = WIDE_STAGES if stages is None else (stages,)
+    for s in options:
+        smem = walk_smem_bytes(k, "wide", s)
+        if s in WIDE_STAGES and smem <= SMEM_MAX:
+            return NmsPlan("wide", s, smem, grid)
+    raise ValueError(f"plan_nms: no wide walk{'' if stages is None else f' with {stages} stages'}"
+                     f" fits K={k} in {SMEM_MAX} B of shared memory")
 
 
 def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float) -> torch.Tensor:
@@ -72,20 +142,27 @@ def _library() -> ctypes.CDLL:
     lib = load_library("nms")
     lib.msl_greedy_nms.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.msl_greedy_nms.restype = ctypes.c_int
+    lib.msl_nms_walk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.msl_nms_walk_smem_bytes.restype = ctypes.c_longlong
     lib.msl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.msl_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float) -> torch.Tensor:
+def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float,
+                    plan: NmsPlan | None = None) -> torch.Tensor:
     """Batched exact greedy NMS: boxes (N, K, 6) float32, valid (N, K) bool -> keep (N, K).
 
     On CUDA tensors this launches the kernel on the current stream, without
-    synchronising, and counts the launch in ``greedy_nms_cuda.launches``. On
-    CPU tensors it returns :func:`greedy_nms`. Anything else raises.
+    synchronising, and counts the launch in ``greedy_nms_cuda.launches``. It
+    takes any K; ``plan`` (default :func:`plan_nms` of K) picks the walk.
+    Its scratch is N x nwp x (K + 64) 64-bit words, nwp = ceil(K/64)
+    rounded up to even: about 64 MB at the 96^3 headline with top_k = 395
+    and batch 32 (N = 32, K = 3942, nwp = 62), and 1 MB at K = 1000, N = 8.
+    On CPU tensors it returns :func:`greedy_nms`. Anything else raises.
     """
     if boxes.device.type == "cpu" and valid.device.type == "cpu":
         return greedy_nms(boxes, valid, max_overlap)
@@ -107,14 +184,11 @@ def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("greedy_nms_cuda: boxes and valid must be contiguous")
     n, k = valid.shape
-    if k > MAX_K:
-        raise ValueError(
-            f"greedy_nms_cuda: K={k} candidates are {-(-k // 64)} words of 64, more than "
-            f"the 32 lanes of the walking warp hold; K must be <= {MAX_K} (lower top_k)"
-        )
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
     if n == 0 or k == 0:
         return keep
+    # a given plan is re-derived for this K: one that does not fit raises
+    plan = plan_nms(k) if plan is None else plan_nms(k, walk=plan.walk, stages=plan.stages)
     nwp = mask_words(k)
     # the mask rows (n, k, nwp), then the transposed diagonal blocks (n, nwp, 64)
     scratch = torch.empty(n * nwp * (k + 64), dtype=torch.int64, device=boxes.device)
@@ -124,7 +198,7 @@ def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float
         err = lib.msl_greedy_nms(
             boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
             scratch[n * k * nwp:].data_ptr(), keep.data_ptr(),
-            n, k, float(max_overlap), stream,
+            n, k, float(max_overlap), -1 if plan.walk == "warp" else plan.stages, stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -1,6 +1,9 @@
-"""Training: the train state, the reference's optimizer, and the train /
-eval / predict steps."""
+"""Training: the train state, the reference's optimizer, the train / eval /
+predict steps, checkpoints, metrics logging and the Trainer loop."""
 
+from .checkpoints import CheckpointManager, load_checkpoint, save_checkpoint
+from .logging import MetricsLogger
+from .loop import Trainer, TrainerConfig
 from .state import (
     AdamL2,
     TrainState,
@@ -20,5 +23,6 @@ from .steps import (
 __all__ = [
     "AdamL2", "TrainState", "cosine_annealing_schedule", "create_train_state", "eval_view",
     "make_optimizer", "make_eval_step", "make_gathered_eval_step", "make_gathered_train_step",
-    "make_predict_step", "make_train_step",
+    "make_predict_step", "make_train_step", "CheckpointManager", "load_checkpoint",
+    "save_checkpoint", "MetricsLogger", "Trainer", "TrainerConfig",
 ]

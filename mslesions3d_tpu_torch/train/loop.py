@@ -1,0 +1,457 @@
+"""Training loop: epochs, validation, detection metrics, checkpoints, early stop.
+
+Counterpart of ``mslesions3d_tpu/train/loop.py``, which replaces pl.Trainer
+and the LSSD3D Lightning hooks (lesions3d/train.py:182-188,
+ssd3d.py:467-691) with an explicit loop around the steps:
+
+* per-step cosine schedule (inside the optimizer: the scheduler-stepped-
+  every-step quirk, ssd3d.py:527-529);
+* validation every epoch, scored on ``eval_view`` (the EMA when carried):
+  losses averaged over batches weighted by the real sample count, so a
+  padded partial batch does not bias the mean -> avg_val_loss;
+* detection metrics (mAP/P/R/F1 at IoU 0.1 and 0.5) on validation every
+  ``compute_metric_every_n_epochs`` epochs and on train every 2n epochs
+  (ssd3d.py:499, 563), computed per batch and averaged over batches like
+  the reference's *_epoch_end hooks (ssd3d.py:588-690); train metrics come
+  from the training forward (the augmented batch). Each of these steps
+  runs ``detect_objects``, so on the card it launches the NMS kernel K1;
+* gradient histograms every ``grad_hist_every_n_steps`` steps and the
+  parameter-L1 scalar hp_metric/parameter_sizes on train-metric epochs
+  (ssd3d.py:689-690, 729-738);
+* ModelCheckpoint(top-3, avg_val_loss, min) + EarlyStopping(patience 5)
+  (train.py:171-180); resume from a checkpoint directory;
+* stop on max_steps (default 4000) or max_epochs (train.py:57-58, 182).
+
+The dataset is held on the device when it fits (``materialize`` once,
+batches gathered there by index); otherwise batches stream from the host
+through ``data/prefetch.py``. Per-step metrics stay on the device: the host
+reads them on the logging cadence and once at the end of an epoch, so the
+steps queue ahead of the card. The non-finite-loss streak is carried on the
+device in the TrainState and checked on the same cadence.
+
+Not ported yet (ROADMAP): ``data_parallel`` and ``spatial_shards > 1``
+(item 17), ``patch_training`` and with it the sliding-window validation
+(item 19); each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..data.augment import AugmentConfig
+from ..data.prefetch import prefetch_batches
+from ..models.ssd3d import SSD3D, SSD3DConfig, model_priors
+from ..ops import metrics as metrics_lib
+from ..ops.nms import detections_to_lists
+from .checkpoints import CheckpointManager, load_checkpoint
+from .logging import MetricsLogger
+from .state import create_train_state, eval_view, make_optimizer
+from .steps import (
+    make_eval_step,
+    make_gathered_eval_step,
+    make_gathered_train_step,
+    make_train_step,
+)
+
+
+def array_batch(batch: dict) -> dict:
+    """Array-only view of a batch dict (drops the subject ids)."""
+    return {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    logdir: str = "./logs"
+    experiment_name: str = "default"
+    max_epochs: int | None = None
+    max_steps: int = 4000
+    early_stopping: bool = True
+    early_stopping_patience: int = 5
+    compute_metric_every_n_epochs: int = 1
+    save_top_k: int = 3
+    seed: int = 970205
+    use_wandb: bool = False
+    data_parallel: bool = False  # not ported yet: raises (ROADMAP item 17)
+    spatial_shards: int = 1  # > 1 not ported yet: raises (ROADMAP item 17)
+    patch_training: bool = False  # not ported yet: raises (ROADMAP item 19)
+    patch_pos_fraction: float = 0.7
+    # > 1 splits each batch into that many micro-batches whose gradients
+    # are averaged before ONE optimizer update (steps.py)
+    grad_accum: int = 1
+    patch_val_full_volume: bool = True  # rides on patch_training
+    hard_negative_mining: bool = False
+    # keep the materialized dataset on the device and gather batches there
+    # by index; streaming (with prefetch) for datasets over the byte cap or
+    # under one full batch
+    device_data_cache: bool = True
+    device_cache_max_bytes: int = 4 << 30
+    # The JAX package scans whole non-metric epochs into one device program
+    # to cut the TPU's per-step dispatch cost; it gives the same numbers as
+    # stepping (tests/test_train.py). The port steps every epoch, and keeps
+    # the field so configurations carry across.
+    epoch_scan: bool = True
+    log_every_n_steps: int = 10
+    grad_hist_every_n_steps: int = 25  # TB grad histograms (0 = off)
+    # abort after this many consecutive non-finite steps; detected on the
+    # log_every_n_steps cadence and at the end of every epoch
+    max_nonfinite_streak: int = 25
+    verbose: bool = True
+    device: str = "cuda"  # the card unless the caller asks for the CPU
+
+
+def _check_ported(cfg: TrainerConfig) -> None:
+    if cfg.data_parallel or cfg.spatial_shards > 1:
+        raise NotImplementedError(
+            "data_parallel and spatial_shards > 1 are not ported yet (ROADMAP item 17)")
+    if cfg.patch_training:
+        raise NotImplementedError(
+            "patch_training (and its sliding-window validation) is not ported yet "
+            "(ROADMAP item 19)")
+
+
+def _host(value):
+    return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+
+
+class Trainer:
+    def __init__(self, trainer_config: TrainerConfig):
+        self.cfg = trainer_config
+
+    def _detection_metrics(self, detections, boxes, labels, box_mask, batch_mask,
+                           prefix, accum):
+        """Queue one batch's detections + GT for the epoch's metrics; no
+        device sync here, _finalize_detection_metrics reads them at the end."""
+        accum[prefix].append(
+            {"det": detections, "boxes": boxes, "labels": labels,
+             "box_mask": box_mask, "batch_mask": batch_mask}
+        )
+
+    def _finalize_detection_metrics(self, accum, prefix, config, logs, tag):
+        """Per-batch mAP/P/R/F1 averaged over batches (reference parity:
+        *_epoch_end averages the per-batch metric dicts, ssd3d.py:588-690 —
+        a different number than one global mAP over pooled detections)."""
+        per_iou = {0.1: [], 0.5: []}
+        for b in accum[prefix]:
+            keep = _host(b["batch_mask"]).astype(bool)
+            det = {k: _host(v)[keep] for k, v in b["det"].items()}
+            db, dl, ds = detections_to_lists(det)
+            boxes = _host(b["boxes"])[keep]
+            labels = _host(b["labels"])[keep]
+            mask = _host(b["box_mask"])[keep]
+            gt_b = [boxes[i][mask[i]] for i in range(boxes.shape[0])]
+            gt_l = [labels[i][mask[i]] for i in range(labels.shape[0])]
+            diffs = [np.zeros(len(l), bool) for l in gt_l]
+            for iou in per_iou:
+                detail = metrics_lib.calculate_mAP(
+                    db, dl, ds, gt_b, gt_l, diffs,
+                    n_classes=config.n_classes, min_overlap=iou,
+                    return_detail=True,
+                )
+                per_iou[iou].append(detail)
+        for iou, suffix in ((0.1, "IoU_0.1"), (0.5, "IoU_0.5")):
+            details = per_iou[iou]
+            if not details:
+                continue
+            logs[f"mAP/{tag}_{suffix}"] = float(np.mean([d["mAP"] for d in details]))
+            if config.n_classes == 2:
+                for key in ("precision", "recall", "f1_score"):
+                    logs[f"{key}/{tag}_{suffix}"] = float(
+                        np.mean([d[key] for d in details])
+                    )
+
+    def fit(self, config: SSD3DConfig, datamodule, augment: AugmentConfig | None = None,
+            resume: str | None = None):
+        """Train ``config`` on ``datamodule``; returns (final state, result).
+
+        The result has the JAX package's keys (history, best_val_loss,
+        checkpoint_dir, best_checkpoint) and the port's ``timings``: the
+        seconds ``materialize`` took and, per epoch, its steps, its train and
+        validation seconds (host clock; the train part ends with a read of
+        the state, so it waits for the card) and its training losses.
+        """
+        cfg = self.cfg
+        _check_ported(cfg)
+        model = SSD3D(config)
+        priors = model_priors(config)
+        state = create_train_state(config, seed=cfg.seed, device=cfg.device)
+        device = state.device
+        start_epoch = 0
+        if resume:
+            _, state, meta = load_checkpoint(resume, state_template=state)
+            start_epoch = meta["extra"].get("epoch", 0) + 1
+            if cfg.verbose:
+                print(f"[resume] from {resume} at step {int(state.step)}")
+
+        kw = dict(hard_negative_mining=cfg.hard_negative_mining,
+                  grad_accum=max(1, int(cfg.grad_accum)))
+        instr_kw = dict(kw, with_detections=True,
+                        return_grads=cfg.grad_hist_every_n_steps > 0)
+        train_step = make_train_step(config, model, priors, augment, **kw)
+        # instrumented variant: detections of the training forward (train
+        # metric epochs) and the raw gradients (TB histograms)
+        train_step_instr = make_train_step(config, model, priors, augment, **instr_kw)
+        eval_step = make_eval_step(config, model, priors, with_detections=True,
+                                   hard_negative_mining=cfg.hard_negative_mining)
+
+        # ---- data path ----
+        # The dataset on the device when it fits: materialize once, copy
+        # once, gather batches there by index, so a step sends the card one
+        # small index vector. Streaming with prefetch for oversized datasets
+        # or sub-batch-size debug runs.
+        train_data = val_data = host_val = None
+        n_train = n_val = 0
+        can_materialize = all(
+            hasattr(datamodule, a) for a in ("materialize", "trainsubs", "testsubs")
+        )  # duck-typed custom datamodules stream
+        materialize_s = 0.0
+        if cfg.device_data_cache and can_materialize:
+            t_data = time.perf_counter()
+            host_train = datamodule.materialize(datamodule.trainsubs)
+            host_val = datamodule.materialize(datamodule.testsubs)
+            materialize_s = time.perf_counter() - t_data
+            nbytes = sum(
+                v.nbytes for d in (host_train, host_val)
+                for v in d.values() if isinstance(v, np.ndarray)
+            )
+            n_train = host_train["image"].shape[0]
+            n_val = host_val["image"].shape[0]
+            if nbytes <= cfg.device_cache_max_bytes and n_train >= datamodule.batch_size:
+                def on_device(d):
+                    return {k: torch.from_numpy(v).to(device) for k, v in d.items()
+                            if isinstance(v, np.ndarray)}
+
+                train_data = on_device(host_train)
+                val_data = on_device(host_val)
+                # the validation batches' rows and masks, padded to whole
+                # batches (a last partial batch repeats the last row, masked)
+                B = datamodule.batch_size
+                val_rows = np.arange(-(-n_val // B) * B).reshape(-1, B)
+                val_valid = val_rows < n_val
+                val_rows = np.minimum(val_rows, n_val - 1)
+                val_on_device = on_device({"rows": val_rows, "valid": val_valid})
+                if cfg.verbose:
+                    print(f"[data] device-resident cache: {n_train} train / {n_val} val "
+                          f"volumes, {nbytes / 2**20:.0f} MiB on {device}")
+            else:
+                host_val = None
+        if train_data is not None:
+            train_step_g = make_gathered_train_step(config, model, priors, augment, **kw)
+            train_step_instr_g = make_gathered_train_step(config, model, priors, augment,
+                                                          **instr_kw)
+            eval_step_g = make_gathered_eval_step(
+                config, model, priors, with_detections=True,
+                hard_negative_mining=cfg.hard_negative_mining)
+
+        logger = MetricsLogger(cfg.logdir, cfg.experiment_name, cfg.use_wandb,
+                               wandb_config=config.to_json_dict())
+        ckpt = CheckpointManager(
+            logger.logdir / "checkpoints", monitor="avg_val_loss",
+            mode="min", save_top_k=cfg.save_top_k,
+        )
+        _, schedule = make_optimizer(config.lr, config.scheduler, t_max=config.t_max)
+
+        best_val = float("inf")
+        patience_left = cfg.early_stopping_patience
+        step = int(state.step)
+        epoch = start_epoch
+        done = False
+        history, epoch_times = [], []
+
+        def check_streak(streak):
+            streak = int(streak)
+            if streak >= cfg.max_nonfinite_streak:
+                raise FloatingPointError(
+                    f"{streak} consecutive non-finite losses at step {step} "
+                    f"— aborting (try a lower learning rate)"
+                )
+
+        try:
+            while not done:
+                if cfg.max_epochs is not None and epoch >= cfg.max_epochs:
+                    break
+
+                # ---- train epoch ----
+                # interval 0 = never (the reference has no disable switch)
+                metric_interval = cfg.compute_metric_every_n_epochs
+                compute_train_metrics = (
+                    metric_interval > 0 and epoch % (metric_interval * 2) == 0
+                )
+                accum = {"train": [], "val": []}
+                t0 = time.perf_counter()
+                train_losses = []
+                if train_data is not None:
+                    # device-resident path: shuffle indices on the host, gather
+                    # on the device. The permutation goes to the device once an
+                    # epoch: a copy from pageable host memory waits for the
+                    # card's queue, so one a step would stall every step.
+                    B = datamodule.batch_size
+                    rg = np.random.default_rng((cfg.seed or 0) + epoch)
+                    perm = torch.from_numpy(rg.permutation(n_train)).to(device)
+                    batches = [perm[i:i + B] for i in range(0, n_train - B + 1, B)]
+                else:
+                    # streaming path: host batch assembly and the copy to the
+                    # device overlap the previous step (the DataLoader analog)
+                    batches = prefetch_batches(
+                        (array_batch(b) for b in datamodule.train_batches(epoch=epoch)),
+                        prefetch=2, device=device,
+                    )
+                # the epoch's augmentation draws, from a generator on the device
+                generator = torch.Generator(device=device).manual_seed((cfg.seed or 0) + epoch)
+
+                for batch in batches:
+                    grad_hist = (
+                        cfg.grad_hist_every_n_steps > 0
+                        and step % cfg.grad_hist_every_n_steps == 0
+                    )
+                    instrumented = compute_train_metrics or grad_hist
+                    if train_data is not None:
+                        fn = train_step_instr_g if instrumented else train_step_g
+                        state, m = fn(state, train_data, batch, generator)
+                        batch_mask = np.ones(len(batch), bool)
+                    else:
+                        fn = train_step_instr if instrumented else train_step
+                        state, m = fn(state, batch, generator)
+                        batch_mask = batch["batch_mask"]
+                    step += 1
+                    # device tensors only, read in bulk at the end of the epoch
+                    train_losses.append(
+                        {k: m[k] for k in ("total_loss", "conf_loss", "loc_loss")}
+                    )
+                    if grad_hist:
+                        logger.log_histograms(m["grads"], step - 1, prefix="epoch/")
+                    if compute_train_metrics:
+                        self._detection_metrics(
+                            m["detections"], m["aug_boxes"], m["aug_labels"],
+                            m["aug_box_mask"], batch_mask, "train", accum,
+                        )
+                    if step % cfg.log_every_n_steps == 0:
+                        host_m = {k: float(m[k]) for k in ("total_loss", "conf_loss", "loc_loss",
+                                                           "nonfinite_streak", "grad_norm")}
+                        check_streak(host_m["nonfinite_streak"])
+                        logger.log(
+                            {
+                                "total_loss/training": host_m["total_loss"],
+                                "confidence_loss/training": host_m["conf_loss"],
+                                "localization_loss/training": host_m["loc_loss"],
+                                "grad_norm/training": host_m["grad_norm"],
+                            },
+                            step,
+                        )
+                    if cfg.max_steps > 0 and step >= cfg.max_steps:
+                        done = True
+                        break
+                if cfg.max_steps > 0 and step >= cfg.max_steps:
+                    done = True  # also an epoch that a resume past max_steps left empty
+                # epoch boundary: one authoritative streak check (covers runs
+                # whose divergence never lands on the logging cadence)
+                check_streak(state.nonfinite_streak)  # waits for the epoch's steps
+                train_s, steps_run = time.perf_counter() - t0, len(train_losses)
+
+                epoch_logs = {}
+                if compute_train_metrics and accum["train"]:
+                    self._finalize_detection_metrics(accum, "train", config, epoch_logs,
+                                                     "training")
+                    # parameter L1 scalar, logged with train metrics like the
+                    # reference's training_epoch_end (ssd3d.py:689-690)
+                    epoch_logs["hp_metric/parameter_sizes"] = float(torch.stack(
+                        [p.abs().sum(dtype=torch.float64) for p in state.params.values()]).sum())
+
+                # ---- validation ----
+                t_val = time.perf_counter()
+                compute_val_metrics = (
+                    cfg.compute_metric_every_n_epochs > 0
+                    and epoch % cfg.compute_metric_every_n_epochs == 0
+                )
+                val_state = eval_view(state)
+                val_losses = []
+                if val_data is not None:
+                    for j, (ids, valid) in enumerate(zip(val_rows, val_valid)):
+                        ev = eval_step_g(val_state, val_data, val_on_device["rows"][j],
+                                         val_on_device["valid"][j])
+                        val_losses.append(
+                            {k: ev[k] for k in ("total_loss", "conf_loss", "loc_loss", "n_valid")}
+                        )
+                        if compute_val_metrics:
+                            self._detection_metrics(
+                                ev["detections"], host_val["boxes"][ids], host_val["labels"][ids],
+                                host_val["box_mask"][ids] & valid[:, None], valid, "val", accum,
+                            )
+                else:
+                    for batch in datamodule.val_batches():
+                        batch = array_batch(batch)
+                        ev = eval_step(val_state, batch)
+                        val_losses.append(
+                            {k: ev[k] for k in ("total_loss", "conf_loss", "loc_loss", "n_valid")}
+                        )
+                        if compute_val_metrics:
+                            self._detection_metrics(
+                                ev["detections"], batch["boxes"], batch["labels"],
+                                batch["box_mask"], batch["batch_mask"], "val", accum,
+                            )
+
+                # one read of the epoch's train and val losses
+                train_losses = [{k: float(v) for k, v in m.items()} for m in train_losses]
+                val_losses = [{k: float(v) for k, v in m.items()} for m in val_losses]
+
+                def weighted_val(key):
+                    # per-batch losses are means over valid samples; weight by
+                    # that count so a padded partial final batch does not skew
+                    # the epoch mean (and checkpoint selection with it)
+                    if not val_losses:
+                        return float("nan")
+                    w = np.asarray([v["n_valid"] for v in val_losses], np.float64)
+                    x = np.asarray([v[key] for v in val_losses], np.float64)
+                    return float((x * w).sum() / max(w.sum(), 1.0))
+
+                avg_val = weighted_val("total_loss")
+                epoch_logs.update(
+                    {
+                        "avg_val_loss": avg_val,
+                        "total_loss/validation": avg_val,
+                        "confidence_loss/validation": weighted_val("conf_loss"),
+                        "localization_loss/validation": weighted_val("loc_loss"),
+                        "hp_metric/lr": float(schedule(torch.tensor(step))),
+                    }
+                )
+                if compute_val_metrics and accum["val"]:
+                    self._finalize_detection_metrics(accum, "val", config, epoch_logs,
+                                                     "validation")
+                epoch_times.append({"epoch": epoch, "steps": steps_run, "train_s": train_s,
+                                    "val_s": time.perf_counter() - t_val,
+                                    "train_losses": [m["total_loss"] for m in train_losses]})
+
+                logger.log(epoch_logs, step)
+                history.append({"epoch": epoch, **epoch_logs})
+                if cfg.verbose:
+                    train_loss = (float(np.mean([m["total_loss"] for m in train_losses]))
+                                  if train_losses else float("nan"))
+                    msg = (f"[epoch {epoch:3d}] step {step} train_loss={train_loss:.4f} "
+                           f"val_loss={avg_val:.4f} ({time.perf_counter() - t0:.1f}s)")
+                    if "mAP/validation_IoU_0.1" in epoch_logs:
+                        msg += f" mAP@0.1={epoch_logs['mAP/validation_IoU_0.1']:.3f}"
+                    print(msg, flush=True)
+
+                # ---- checkpoint + early stopping ----
+                if np.isfinite(avg_val):
+                    ckpt.save(state, config, {"avg_val_loss": avg_val}, epoch)
+                    if avg_val < best_val:
+                        best_val = avg_val
+                        patience_left = cfg.early_stopping_patience
+                    elif cfg.early_stopping:
+                        patience_left -= 1
+                        if patience_left <= 0:
+                            if cfg.verbose:
+                                print(f"[early stopping] at epoch {epoch}")
+                            done = True
+
+                epoch += 1
+
+        finally:
+            logger.close()
+        return state, {"history": history, "best_val_loss": best_val,
+                       "checkpoint_dir": str(ckpt.root), "best_checkpoint": str(ckpt.best),
+                       "timings": {"materialize_s": materialize_s, "epochs": epoch_times}}

@@ -5,14 +5,22 @@ present, so every pytest worker collects the same tests. Run on a card with
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu_nms.py
 
-Keep masks are booleans: the kernel must equal the plain version exactly.
+Keep masks are booleans: the kernel must equal the plain version exactly,
+at every K: the warp walk up to 2048, the wide walk with 3, 2 and 1 staged
+words, and past what one staged word takes (K = 28545, from global memory;
+one row there, since the plain version holds K x K pairs).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mslesions3d_tpu_torch.kernels.nms import MAX_K, greedy_nms, greedy_nms_cuda
+from mslesions3d_tpu_torch.kernels.nms import (
+    _library,
+    greedy_nms,
+    greedy_nms_cuda,
+    plan_nms,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -37,15 +45,42 @@ def _on_card(boxes, valid):
             torch.as_tensor(valid, device="cuda").contiguous())
 
 
-@pytest.mark.parametrize("k", [1, 31, 64, 65, 146, 200, 1000, MAX_K])
+@pytest.mark.parametrize("k", [1, 31, 64, 65, 146, 200, 1000, 2048, 2049, 3942, 9473, 14337,
+                               28545])
 def test_kernel_equals_plain(k):
     _need_card()
-    boxes, valid = _on_card(*_clustered(np.random.default_rng(k), 6, k))
+    boxes, valid = _on_card(*_clustered(np.random.default_rng(k), 6 if k <= 4096 else 1, k))
     before = greedy_nms_cuda.launches
     keep = greedy_nms_cuda(boxes, valid, 0.5)
     torch.cuda.synchronize()
     assert greedy_nms_cuda.launches == before + 1
     torch.testing.assert_close(keep, greedy_nms(boxes, valid, 0.5), rtol=0, atol=0)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("stages", [0, 1, 2, 3])
+def test_every_wide_walk_equals_plain(stages):
+    """The wide walk forced to each staged-word count, at K = 2048 (where
+    the warp walk would run) and at the headline's K = 3942 with a row whose
+    valid candidates end early."""
+    _need_card()
+    for k in (2048, 3942):
+        boxes, valid = _clustered(np.random.default_rng(stages), 4, k)
+        valid[1, k - 700:] = False
+        boxes, valid = _on_card(boxes, valid)
+        keep = greedy_nms_cuda(boxes, valid, 0.5, plan=plan_nms(k, walk="wide", stages=stages))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(keep, greedy_nms(boxes, valid, 0.5), rtol=0, atol=0)
+
+
+def test_plan_smem_matches_the_library():
+    """plan_nms's shared memory is what csrc/nms.cu launches with."""
+    _need_card()
+    lib = _library()
+    for k in (1, 1000, 2048, 2049, 3942, 9472, 9473, 14337, 28544, 28545):
+        plan = plan_nms(k)
+        stages = -1 if plan.walk == "warp" else plan.stages
+        assert lib.msl_nms_walk_smem_bytes(k, stages) == plan.smem
 
 
 def test_kernel_prefix_and_empty_rows():
@@ -97,9 +132,13 @@ def test_kernel_rejects_what_it_does_not_take():
         greedy_nms_cuda(boxes.transpose(0, 1), valid.t(), 0.5)
     with pytest.raises(ValueError, match="same CUDA device"):
         greedy_nms_cuda(boxes, valid.cpu(), 0.5)
-    big = torch.zeros((1, MAX_K + 1, 6), device="cuda")
-    with pytest.raises(ValueError, match=f"K must be <= {MAX_K}"):
-        greedy_nms_cuda(big, torch.ones((1, MAX_K + 1), dtype=torch.bool, device="cuda"), 0.5)
+    big, big_valid = _on_card(*_clustered(np.random.default_rng(1), 1, 2049))
+    with pytest.raises(ValueError, match="warp walk"):
+        greedy_nms_cuda(big, big_valid, 0.5, plan=plan_nms(2048))
+    # one past the warp walk's 2048, once refused, is served exactly
+    keep = greedy_nms_cuda(big, big_valid, 0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(keep, greedy_nms(big, big_valid, 0.5), rtol=0, atol=0)
 
 
 def test_detector_on_card_matches_cpu_forward():

@@ -109,7 +109,7 @@ def test_config_json_round_trips_with_jax(name):
     assert ours.compute_dtype == (torch.bfloat16 if ours.dtype == "bfloat16" else torch.float32)
 
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mslesions3d_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sklearn", "msgpack", "mslesions3d_tpu"}
 
 
 def _imported_roots(path: Path):
@@ -124,6 +124,10 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax():
     files = sorted((REPO / "mslesions3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {str(f.relative_to(REPO / "mslesions3d_tpu_torch")) for f in files[:-1]}
+    assert {"data/nifti.py", "data/generate.py", "data/boxes_from_seg.py", "data/transforms.py",
+            "data/datasets.py", "data/prefetch.py", "train/checkpoints.py", "train/logging.py",
+            "train/loop.py", "cli/train.py"} <= scanned
     offenders = {
         str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files
     }

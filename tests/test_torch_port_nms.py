@@ -4,9 +4,10 @@ The port's plain greedy NMS (the version CPU tensors use, and the one the
 CUDA kernel is held to on the card) must equal JAX ``greedy_nms`` and the
 Pallas kernel in interpret mode exactly: keep masks are booleans, so there
 is no tolerance. A numpy emulation of the CUDA kernel's bitmask algorithm
-(the mask words with the transposed diagonal blocks, and the walk that
-resolves one 64-candidate word at a time) checks its design here, where
-the kernel itself cannot run.
+(the mask words with the transposed diagonal blocks, and the walks that
+resolve one 64-candidate word at a time: the warp walk up to K = 2048, the
+wide walk with 3, 2, 1 or 0 staged words past it) checks its design here,
+where the kernel itself cannot run, up to K = 3942, the 96^3 headline's.
 """
 
 import jax.numpy as jnp
@@ -18,7 +19,7 @@ from mslesions3d_tpu.kernels.nms import greedy_nms_pallas
 from mslesions3d_tpu.models.priors import default_scales, generate_priors
 from mslesions3d_tpu.ops.nms import detect_objects as jax_detect_objects
 from mslesions3d_tpu.ops.nms import greedy_nms as jax_greedy_nms
-from mslesions3d_tpu_torch.kernels.nms import MAX_K, greedy_nms_cuda, mask_words
+from mslesions3d_tpu_torch.kernels.nms import greedy_nms_cuda, mask_words, plan_nms
 from mslesions3d_tpu_torch.ops.boxes import pairwise_iou
 from mslesions3d_tpu_torch.ops.nms import (
     detect_objects,
@@ -99,6 +100,26 @@ CASES = {"clustered_k200": _clustered_case, "prefix_k384": _prefix_case,
          "near_threshold": _near_threshold_case, "chain_k150": _chain_case}
 
 
+def _large_case(k):
+    """Clustered candidates past the warp walk's 2048; row 1 ends its valid
+    candidates early, so the walk stops before the last word."""
+    def make():
+        rng = np.random.default_rng(k)
+        n = 2
+        centers = rng.uniform(0.2, 0.8, size=(n, 60, 3))
+        idx = rng.integers(0, 60, size=(n, k))
+        lo = np.clip(np.take_along_axis(centers, idx[..., None], 1)
+                     + rng.normal(0, 0.03, (n, k, 3)) - 0.04, 0, 1)
+        hi = np.clip(lo + rng.uniform(0.04, 0.12, (n, k, 3)), 0, 1)
+        valid = rng.uniform(size=(n, k)) > 0.15
+        valid[1, k - 700:] = False
+        return np.concatenate([lo, hi], -1).astype(np.float32), valid
+    return make
+
+
+LARGE_CASES = {"clustered_k2049": _large_case(2049), "clustered_k3942": _large_case(3942)}
+
+
 def _jax_keep(boxes, valid):
     return np.stack([
         np.asarray(jax_greedy_nms(jnp.asarray(boxes[i]), jnp.asarray(valid[i]), 0.5))
@@ -136,66 +157,101 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
     np.testing.assert_array_equal(keep.numpy(), _jax_keep(boxes, valid))
 
 
-def walk_smem_bytes(k):
-    """csrc/nms.cu walk_smem_bytes: three buffers of 64 mask rows and of one
-    64-word diagonal block."""
-    return 3 * 64 * (mask_words(k) + 1) * 8
+def walk_smem_bytes(k, stages=None):
+    """csrc/nms.cu walk_smem_bytes (the warp walk, stages None): three
+    buffers of 64 mask rows and of one 64-word diagonal block; and
+    wide_smem_bytes: ``stages`` such buffers, then the removed bitset of
+    mask_words(k) words, the kept word and the count."""
+    if stages is None:
+        return 3 * 64 * (mask_words(k) + 1) * 8
+    return (stages * 64 * (mask_words(k) + 1) + mask_words(k) + 2) * 8
 
 
 def test_max_k_is_the_largest_that_fits_shared_memory():
-    # the walking warp holds one 64-candidate word per lane: 32 words
-    assert -(-MAX_K // 64) == 32 < -(-(MAX_K + 1) // 64)
-    # its three buffers of staged rows fit a Hopper block's shared memory
-    assert walk_smem_bytes(MAX_K) <= 232_448
+    # the warp walk holds one 64-candidate word per lane: 32 words, K <= 2048
+    assert plan_nms(2048).walk == "warp" and plan_nms(2049).walk == "wide"
+    assert walk_smem_bytes(2048) <= 232_448
     assert walk_smem_bytes(1000) == 26_112  # the headline K: 16 words per row
-    assert [mask_words(k) for k in (1, 64, 65, 1000, 1025, MAX_K)] == [2, 2, 2, 16, 18, 32]
+    assert [mask_words(k) for k in (1, 64, 65, 1000, 1025, 2048)] == [2, 2, 2, 16, 18, 32]
+    # each wide stage count takes K up to the largest whose buffers fit 227 KB
+    for stages, k_max in ((3, 9472), (2, 14336), (1, 28544)):
+        assert walk_smem_bytes(k_max, stages) <= 232_448 < walk_smem_bytes(k_max + 64, stages)
+        assert plan_nms(k_max).stages == stages
+        assert plan_nms(k_max + 1).stages == stages - 1
+    with pytest.raises(ValueError, match="warp walk"):
+        plan_nms(2049, walk="warp")
+    with pytest.raises(ValueError, match="no wide walk with 3 stages fits K=9473"):
+        plan_nms(9473, walk="wide", stages=3)
+
+
+@pytest.mark.parametrize("k, walk, stages", [
+    (1000, "warp", 3), (2048, "warp", 3), (3942, "wide", 3), (9600, "wide", 2),
+    (9601, "wide", 2), (30000, "wide", 0),
+])
+def test_stage_plan(k, walk, stages):
+    """The walk and staged words plan_nms picks, its shared memory, and a
+    mask grid with no dimension past 65535 that covers the triangle."""
+    plan = plan_nms(k)
+    assert (plan.walk, plan.stages) == (walk, stages)
+    assert plan.smem == walk_smem_bytes(k, None if walk == "warp" else stages) <= 232_448
+    nw = -(-k // 64)
+    gy, gz = plan.mask_grid
+    assert max(gy, gz) <= 65_535 and gy * gz >= nw * (nw + 1) // 2 > gy * (gz - 1)
+    if k == 30000:  # past what one staged word's rows take; 2 grid planes
+        assert walk_smem_bytes(k, 1) > 232_448 and gz == 2
 
 
 ALL64 = (1 << 64) - 1
 
 
-def _bitmask_emulation(boxes, valid, t, rng):
-    """numpy mirror of csrc/nms.cu: mask words, diagonal blocks, block skips, walk.
+def _pack_words(bits):
+    """(..., 64 w) bools -> (..., w) uint64 words, bit c of word i = bits[64 i + c]."""
+    return np.ascontiguousarray(np.packbits(bits, axis=-1, bitorder="little")).view("<u8")
 
-    Words the kernel never writes are filled with random bits, which proves
-    the walk never reads them. The mask rows have mask_words(k) words; a
-    diagonal block is also written transposed (word i: the j < i of the same
-    64 that suppress i). The walk resolves a word at a time: the fixpoint of
-    kept = live & ~(suppressed by kept) from kept = live, then the kept rows
-    OR into the later words' removed bits.
+
+def _bitmask_emulation(boxes, valid, t, rng, plan=None):
+    """numpy mirror of csrc/nms.cu: mask words, diagonal blocks, block skips, walks.
+
+    Words the kernel never writes, and shared-memory words the walk never
+    stages, are filled with random bits, which proves the walk never reads
+    them. The mask rows have mask_words(k) words; a diagonal block is also
+    written transposed (word i: the j < i of the same 64 that suppress i).
+    The walk resolves a word at a time: the fixpoint of kept = live &
+    ~(suppressed by kept) from kept = live, then the kept rows OR into the
+    later words' removed bits, from staged rows (the warp walk stages words
+    c0 = (w+1) & ~1 up to nwp, the wide walk up to the even count of words
+    in play) or, with 0 stages, from the mask rows in global memory.
     """
     n, k, _ = boxes.shape
+    plan = plan or plan_nms(k)
     nw, nwp = -(-k // 64), mask_words(k)
     iou = pairwise_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
+    jj, ii = np.arange(k)[:, None], np.arange(k)[None, :]
+    sup = np.zeros((n, k, nw * 64), bool)
+    sup[:, :, :k] = (iou > t) & (ii > jj)
+    words = _pack_words(sup)  # (n, k, nw)
     mask = rng.integers(0, 2**63, size=(n, k, nwp), dtype=np.uint64)  # torch.empty garbage
     diag_t = rng.integers(0, 2**63, size=(n, nwp, 64), dtype=np.uint64)
     for row in range(n):
-        for rb in range(nw):
-            for cb in range(rb, nw):
-                if not valid[row, cb * 64:].any():
-                    continue  # block skipped: nothing past its first column is valid
-                rows = [0] * 64
-                for j in range(rb * 64, min(k, rb * 64 + 64)):
-                    bits = 0
-                    for c in range(min(64, k - cb * 64)):
-                        i = cb * 64 + c
-                        if i > j and iou[row, j, i] > t:
-                            bits |= 1 << c
-                    mask[row, j, cb] = np.uint64(bits)
-                    rows[j - rb * 64] = bits
-                if cb == rb:
-                    for col in range(64):
-                        diag_t[row, cb, col] = np.uint64(
-                            sum(((rows[r] >> col) & 1) << r for r in range(64)))
+        for cb in range(nw):
+            if not valid[row, cb * 64:].any():
+                continue  # block skipped: nothing past its first column is valid
+            rows = slice(0, min(k, cb * 64 + 64))  # blocks rb <= cb
+            mask[row, rows, cb] = words[row, rows, cb]
+            block = np.zeros((64, 64), bool)
+            r = min(64, k - cb * 64)
+            block[:r] = sup[row, cb * 64:cb * 64 + r, cb * 64:cb * 64 + 64]
+            diag_t[row, cb] = _pack_words(block.T)[:, 0]
     keep = np.zeros((n, k), bool)
     for row in range(n):
         idx = np.nonzero(valid[row])[0]
         count = int(idx[-1]) + 1 if idx.size else 0
-        words = -(-count // 64)
-        removed = [ALL64] * 32  # invalid candidates count as removed
+        used = -(-count // 64)
+        staged_to = nwp if plan.walk == "warp" else used + (used & 1)
+        removed = [ALL64] * nw  # invalid candidates count as removed
         for i in idx.tolist():
             removed[i // 64] &= ~(1 << (i % 64))
-        for w in range(words):
+        for w in range(used):
             live = ~removed[w] & ALL64
             cols = [int(diag_t[row, w, lane]) for lane in range(64)]
             kept = live
@@ -207,24 +263,44 @@ def _bitmask_emulation(boxes, valid, t, rng):
             for b in range(64):
                 if w * 64 + b < k:
                     keep[row, w * 64 + b] = bool((kept >> b) & 1)
-            staged = range(w * 64, min(count, w * 64 + 64))  # rows past count: not staged
-            for c in range(w + 1, words):
-                for j in staged:
-                    if (kept >> (j - w * 64)) & 1:
-                        removed[c] |= int(mask[row, j, c])
+            src = mask[row, w * 64:w * 64 + 64]  # global memory (0 stages)
+            if plan.stages > 0:  # the staged buffer: rows up to count, words c0 ..
+                src = rng.integers(0, 2**63, size=(64, nwp), dtype=np.uint64)
+                c0, nr = (w + 1) & ~1, min(64, count - w * 64)
+                src[:nr, c0:staged_to] = mask[row, w * 64:w * 64 + nr, c0:staged_to]
+            kept_rows = [r for r in range(64) if (kept >> r) & 1]  # rows past count: bit 0
+            for c in range(w + 1, used):
+                for r in kept_rows:
+                    removed[c] |= int(src[r, c])
     return keep
 
 
-@pytest.mark.parametrize("case", list(CASES))
+def _pallas_keep(boxes, valid):
+    return np.asarray(
+        greedy_nms_pallas(jnp.asarray(boxes), jnp.asarray(valid), 0.5, interpret=True))
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(LARGE_CASES))
 def test_kernel_bitmask_design_is_exact(case):
-    boxes, valid = CASES[case]()
+    boxes, valid = {**CASES, **LARGE_CASES}[case]()
     rng = np.random.default_rng(1)
     ours = _bitmask_emulation(boxes, valid, 0.5, rng)
     np.testing.assert_array_equal(ours, _jax_keep(boxes, valid))
-    pallas = np.asarray(
-        greedy_nms_pallas(jnp.asarray(boxes), jnp.asarray(valid), 0.5, interpret=True)
-    )
-    np.testing.assert_array_equal(ours, pallas)
+    np.testing.assert_array_equal(ours, _pallas_keep(boxes, valid))
+    if case in LARGE_CASES:
+        assert plan_nms(boxes.shape[1]).walk == "wide" and ours.any() and not ours[valid].all()
+
+
+@pytest.mark.parametrize("stages", [0, 1, 2, 3])
+def test_wide_walk_design_is_exact_at_every_stage_count(stages):
+    """The wide walk, forced to each staged-word count, on the small cases
+    and at the 96^3 headline's K = 3942, against JAX's greedy_nms."""
+    rng = np.random.default_rng(stages)
+    for case in (*CASES.values(), LARGE_CASES["clustered_k3942"]):
+        boxes, valid = case()
+        plan = plan_nms(boxes.shape[1], walk="wide", stages=stages)
+        ours = _bitmask_emulation(boxes, valid, 0.5, rng, plan)
+        np.testing.assert_array_equal(ours, _jax_keep(boxes, valid))
 
 
 def _detect_inputs(seed=0, batch=3, n_classes=3, size=64):
@@ -239,16 +315,24 @@ def _detect_inputs(seed=0, batch=3, n_classes=3, size=64):
     return locs, scores, priors
 
 
-@pytest.mark.parametrize("top_k", [100, 7])
+@pytest.mark.parametrize("top_k", [100, 7, 395])
 def test_detect_objects_matches_jax(top_k):
-    """64^3 priors (P=1168): top_k=100 gives K=1000, the headline K.
+    """The test's 64^3 priors (P=146): top_k 100 and 7 give K = 146 and 70.
+    top_k = 395 on its 192^3
+    priors (P=3942, the 96^3 headline model's count) gives K = 3942, past
+    the warp walk's 2048, on one image and one foreground class (the plain
+    NMS holds K x K pairs).
 
     count and labels must be equal; boxes and scores agree to 1e-6 (both
     sides run the same float32 softmax and decode, which may round
     differently by an ulp). Scores are distinct, so top-k order is unique.
     """
-    locs, scores, priors = _detect_inputs()
-    kw = dict(n_classes=3, min_score=0.5, max_overlap=0.5, top_k=top_k)
+    if top_k == 395:
+        locs, scores, priors = _detect_inputs(batch=1, n_classes=2, size=192)
+        assert min(10 * top_k, priors.shape[0]) == 3942
+    else:
+        locs, scores, priors = _detect_inputs()
+    kw = dict(n_classes=scores.shape[-1], min_score=0.5, max_overlap=0.5, top_k=top_k)
     ref = jax_detect_objects(jnp.asarray(locs), jnp.asarray(scores), jnp.asarray(priors), **kw)
     ours = detect_objects(torch.from_numpy(locs), torch.from_numpy(scores),
                           torch.from_numpy(priors), **kw)
