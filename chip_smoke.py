@@ -73,6 +73,27 @@ Phases (any failure exits non-zero and prints no result line):
    same configuration beside the trainer's ms per step; then a resume from
    ``last`` trains one more epoch. Times: generation, materialize, ms per
    step by epoch, validation seconds by epoch, the peak memory.
+4d. the scoring entry points on 4c's ``last`` checkpoint, in its temporary
+   directory, each run with the launch counts set to 0 just before it and
+   read just after: ``cli.predict.main`` (-ps validation -sc 0.0 -k 100,
+   batch 1) on the default path writes every validation subject's
+   ``_preds.json`` / ``.csv`` / ``.nii.gz`` and both per-subject metric
+   files, K1 launches once a predict batch, and every subject's saved
+   detections equal the plain NMS's on the locs and scores its forward gave
+   (a forward hook); then on a copy of the checkpoint with ``use_pallas``
+   and ``use_pallas_tail`` set: K1, K2 and K3 launch as ``plan_depthwise``
+   / ``plan_tail`` give for the config's dtype, K2 and K3 are held against
+   their plain versions on the operands predict gave them, and the locs and
+   scores, and each subject's detection count and sorted saved scores,
+   agree with the default path's within 5% (relative). ``cli.eval``
+   scores the default run over IoU {0.1, 0.5} x min_score {0.1, 0.2, 0.3,
+   0.5, 0.7} (10 metric files, reduced to their operating-point maxima as
+   tools/quality_stats.py does); ``last`` saved as a Lightning-style .ckpt
+   goes through ``cli.import_torch`` and a predict on the import gives the
+   original run's files byte for byte; ``cli.tune_lr`` sweeps 20 steps and
+   suggests a finite lr; ``cli.model_insight priors`` writes the prior
+   wireframes. Times: seconds a volume of each predict (host clock) and the
+   predict step's ms (CUDA events), eval's seconds.
 5. times on the card: K1 (at K = 1000, and at K = 3942 for N = 8 and 32),
    K2 and K3 beside their plain versions and bounds (and K2 at layers
    3/5/7 at batch 8 and layer 3 at batch 32 beside the cuDNN conv + BN +
@@ -93,12 +114,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 from functools import partial
 from pathlib import Path
 
@@ -108,10 +130,16 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from mslesions3d_tpu_torch.cli import import_torch as import_cli
+from mslesions3d_tpu_torch.cli import model_insight as insight_cli
+from mslesions3d_tpu_torch.cli import plots, recipe
+from mslesions3d_tpu_torch.cli import predict as predict_cli
 from mslesions3d_tpu_torch.cli import train as train_cli
+from mslesions3d_tpu_torch.cli import tune_lr as tune_lr_cli
 from mslesions3d_tpu_torch.data.augment import AugmentConfig
 from mslesions3d_tpu_torch.data.datasets import SyntheticDataModule
 from mslesions3d_tpu_torch.data.generate import generate_dataset
+from mslesions3d_tpu_torch.data.nifti import load_nifti
 from mslesions3d_tpu_torch.kernels.build import build, find_nvcc
 from mslesions3d_tpu_torch.kernels.depthwise import (
     depthwise_bn_relu,
@@ -136,6 +164,7 @@ from mslesions3d_tpu_torch.train import (
     make_eval_step,
     make_gathered_eval_step,
     make_gathered_train_step,
+    make_predict_step,
     make_train_step,
 )
 
@@ -167,15 +196,14 @@ TRAIN = dict(n_classes=2, input_channels=1, input_size=(64, 64, 64), dtype="bflo
              threshold=[0.1, 0.2])
 TRAIN_AUGMENT = dict(flip_axes=(0, 1, 2), rot90_planes=((1, 2),))
 TRAIN_BOXES = ((0.2, 0.2, 0.2, 0.5, 0.5, 0.5), (0.6, 0.6, 0.6, 0.8, 0.8, 0.8))
-# the JAX package's 4k headline recipe (quality_artifacts/README.md:41-44,
-# tools/quality_r5_campaign.sh:11): its dataset cut to 40 images, its
-# training flags cut to 24 steps (6 epochs of 4), full width, float32
-RECIPE_DATA = dict(num_images=40, image_size=(64, 64, 64), object_size=(6, 14),
-                   num_objects=(1, 5), seed=0)
-RECIPE_FLAGS = ["-b", "8", "-lr", "0.003", "-th", "0.1", "0.2", "-bpl", "3", "--alpha", "2",
-                "-a", "flip", "rotate90", "zoom", "-sr", "cosine_annealed",
-                "--hard_negative_mining", "1", "-es", "0"]
+# the JAX package's 4k headline recipe (cli/recipe.py): its dataset cut to
+# 40 images, its training flags cut to 24 steps (6 epochs of 4), full
+# width, float32; scored as the recipe scores
+RECIPE_DATA = {**recipe.DATA, "num_images": 40}
 RECIPE_STEPS = 24
+TUNE_LR_STEPS = 20
+# K3 in float32 against its plain version (tests/test_torch_gpu_tail.py)
+TAIL_F32_RTOL = TAIL_F32_ATOL = 1e-5
 # K3 in bf16 against its plain version: share of differing elements per
 # emitted map (5, 7); tests/test_torch_port_tail.py sets out why
 TAIL_MAX_DIFFERING = (0.01, 0.15)
@@ -420,6 +448,17 @@ def compare_tail(name, x, layers, emit):
     torch.cuda.synchronize()
     refs = tail_reference(x, layers, emit)
     errs, shares = [], []
+    if x.dtype == torch.float32:
+        for j, (out, ref) in enumerate(zip(outs, refs)):
+            diff = (out - ref).abs()
+            within = bool((diff <= TAIL_F32_ATOL + TAIL_F32_RTOL * ref.abs()).all())
+            errs.append(float(diff.max()))
+            shares.append(float((diff > 0).float().mean()))
+            log(f"K3 vs plain [{name}] map {j} {tuple(out.shape)} float32: differing share "
+                f"{shares[-1]:.5f}, max abs err {errs[-1]:.3e} (bound: rtol {TAIL_F32_RTOL}, "
+                f"atol {TAIL_F32_ATOL}: {'met' if within else 'NOT met'})")
+            check(within, f"K3 disagrees with its plain version on {name}")
+        return max(errs), shares
     for j, (out, ref, max_share) in enumerate(zip(outs, refs, TAIL_MAX_DIFFERING)):
         a, b = out.float(), ref.float()
         diff = (a - b).abs()
@@ -641,6 +680,26 @@ def tapped_kernel_operands(model):
             handle.remove()
 
 
+@contextmanager
+def on_first_forward(cls, enter):
+    """Enters ``enter(module)`` on each instance of ``cls`` at its first
+    forward inside the block, so that hooks reach the models a CLI builds
+    inside a call, and exits them all at its end. Yields the list of the
+    values entered, in the order the instances first ran."""
+    entered, seen = [], set()
+    with ExitStack() as stack:
+        def pre(module, args):
+            if isinstance(module, cls) and id(module) not in seen:
+                seen.add(id(module))
+                entered.append(stack.enter_context(enter(module)))
+
+        handle = torch.nn.modules.module.register_module_forward_pre_hook(pre)
+        try:
+            yield entered
+        finally:
+            handle.remove()
+
+
 def check_plain_detections(name, det, locs, scores, priors, config) -> None:
     """A step's detections (K1) against the plain NMS on the same locs and scores."""
     kw = dict(n_classes=config.n_classes, top_k=config.top_k)
@@ -782,124 +841,310 @@ def drive_training(card, counters) -> dict:
             "step_ms": timings, "eval_ms": float(np.median(eval_ms)), "peak": peak}
 
 
-def drive_training_entry(card, counters) -> dict:
+def drive_training_entry(card, counters, tmp: Path) -> dict:
     """Phase 4c: the training entry point. Generate the JAX package's 4k
     headline dataset (cut to 40 images), train through ``cli.train`` on the
     card with the recipe's flags (cut to 24 steps, full width), check what
     it wrote, hold one validation batch's detections against the plain NMS,
     time the bare step at the same configuration, and resume one epoch."""
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        root, logs = Path(tmp) / "data", Path(tmp) / "logs"
-        t0 = time.perf_counter()
-        generate_dataset(root, num_processes=1, **RECIPE_DATA)
-        gen_s = time.perf_counter() - t0
-        log(f"generated {RECIPE_DATA['num_images']} volumes of "
-            f"{RECIPE_DATA['image_size']} in {gen_s:.3f} s (one process) [{card}]")
-        args = ["-d", str(root), *RECIPE_FLAGS, "-mi", str(RECIPE_STEPS), "-ld", str(logs),
-                "--device", "cuda"]
-        for c in counters:
-            c.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        result = train_cli.main([*args, "-en", "recipe"])
-        fit_s = time.perf_counter() - t0
-        launches = [c.launches for c in counters]
-        peak = torch.cuda.max_memory_allocated()
-        hist, timings = result["history"], result["timings"]
-        epochs = timings["epochs"]
-        losses = [v for e in epochs for v in e["train_losses"]]
-        log(f"cli.train: {len(hist)} epochs, {len(losses)} steps in {fit_s:.3f} s (set-up, "
-            f"materialize {timings['materialize_s']:.3f} s, and checkpoints included); "
-            f"training losses {[round(v, 4) for v in losses]}; avg_val_loss "
-            f"{[round(h['avg_val_loss'], 4) for h in hist]}; mAP@0.1 on validation "
-            f"{[round(h['mAP/validation_IoU_0.1'], 4) for h in hist]}; peak memory allocated "
-            f"{peak / 2**30:.3f} GiB [{card}]")
-        check(len(hist) == RECIPE_STEPS // 4 and len(losses) == RECIPE_STEPS,
-              f"cli.train ran {len(hist)} epochs and {len(losses)} steps")
-        check(all(np.isfinite(losses)) and all(np.isfinite(h["avg_val_loss"]) for h in hist),
-              "a non-finite loss in cli.train")
-        check(all("mAP/validation_IoU_0.1" in h and "mAP/validation_IoU_0.5" in h for h in hist),
-              "an epoch without validation mAP")
-        ckpt_dir = Path(result["checkpoint_dir"])
-        names = sorted(p.name for p in ckpt_dir.iterdir())
-        check(names[-1] == "last" and sum(n.startswith("checkpoint-") for n in names) == 3,
-              f"checkpoints {names}")
-        # K1: one launch a validation batch (8 volumes: one batch) and one a
-        # train step in the train-metric epochs (0, 2, 4); K2, K3 stay off
-        expected = len(hist) + sum(e["steps"] for e in epochs if e["epoch"] % 2 == 0)
-        log(f"cli.train launches: K1 {launches[0]} (expected {expected}: {len(hist)} validation "
-            f"batches and the train-metric epochs' steps), K2 {launches[1]}, K3 {launches[2]}; "
-            f"checkpoints {names}")
-        check(launches[0] == expected, "K1 did not launch once per validation batch and "
-              "train-metric step")
-        check(launches[1] == launches[2] == 0, "K2 or K3 launched in training")
-        per_step = [e["train_s"] / e["steps"] * 1e3 for e in epochs]
-        val_s = [e["val_s"] for e in epochs]
-        log(f"trainer wall ms per step by epoch {[round(v, 3) for v in per_step]} (epochs 0, "
-            f"2, 4 take the instrumented step with detections), validation s by epoch "
-            f"{[round(v, 3) for v in val_s]} [{card}]")
+    root, logs = tmp / "data", tmp / "logs"
+    t0 = time.perf_counter()
+    generate_dataset(root, num_processes=1, **RECIPE_DATA)
+    gen_s = time.perf_counter() - t0
+    log(f"generated {RECIPE_DATA['num_images']} volumes of "
+        f"{RECIPE_DATA['image_size']} in {gen_s:.3f} s (one process) [{card}]")
+    args = ["-d", str(root), *recipe.TRAIN_FLAGS, "-mi", str(RECIPE_STEPS), "-ld", str(logs),
+            "--device", "cuda"]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = train_cli.main([*args, "-en", "recipe"])
+    fit_s = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    peak = torch.cuda.max_memory_allocated()
+    hist, timings = result["history"], result["timings"]
+    epochs = timings["epochs"]
+    losses = [v for e in epochs for v in e["train_losses"]]
+    log(f"cli.train: {len(hist)} epochs, {len(losses)} steps in {fit_s:.3f} s (set-up, "
+        f"materialize {timings['materialize_s']:.3f} s, and checkpoints included); "
+        f"training losses {[round(v, 4) for v in losses]}; avg_val_loss "
+        f"{[round(h['avg_val_loss'], 4) for h in hist]}; mAP@0.1 on validation "
+        f"{[round(h['mAP/validation_IoU_0.1'], 4) for h in hist]}; peak memory allocated "
+        f"{peak / 2**30:.3f} GiB [{card}]")
+    check(len(hist) == RECIPE_STEPS // 4 and len(losses) == RECIPE_STEPS,
+          f"cli.train ran {len(hist)} epochs and {len(losses)} steps")
+    check(all(np.isfinite(losses)) and all(np.isfinite(h["avg_val_loss"]) for h in hist),
+          "a non-finite loss in cli.train")
+    check(all("mAP/validation_IoU_0.1" in h and "mAP/validation_IoU_0.5" in h for h in hist),
+          "an epoch without validation mAP")
+    ckpt_dir = Path(result["checkpoint_dir"])
+    names = sorted(p.name for p in ckpt_dir.iterdir())
+    check(names[-1] == "last" and sum(n.startswith("checkpoint-") for n in names) == 3,
+          f"checkpoints {names}")
+    # K1: one launch a validation batch (8 volumes: one batch) and one a
+    # train step in the train-metric epochs (0, 2, 4); K2, K3 stay off
+    expected = len(hist) + sum(e["steps"] for e in epochs if e["epoch"] % 2 == 0)
+    log(f"cli.train launches: K1 {launches[0]} (expected {expected}: {len(hist)} validation "
+        f"batches and the train-metric epochs' steps), K2 {launches[1]}, K3 {launches[2]}; "
+        f"checkpoints {names}")
+    check(launches[0] == expected, "K1 did not launch once per validation batch and "
+          "train-metric step")
+    check(launches[1] == launches[2] == 0, "K2 or K3 launched in training")
+    per_step = [e["train_s"] / e["steps"] * 1e3 for e in epochs]
+    val_s = [e["val_s"] for e in epochs]
+    log(f"trainer wall ms per step by epoch {[round(v, 3) for v in per_step]} (epochs 0, "
+        f"2, 4 take the instrumented step with detections), validation s by epoch "
+        f"{[round(v, 3) for v in val_s]} [{card}]")
 
-        # one validation batch from the last checkpoint: its detections (K1)
-        # against the plain NMS on the same locs and scores
-        config = SSD3DConfig.from_json_dict(
-            json.loads((ckpt_dir / "last" / "meta.json").read_text())["config"])
-        model = SSD3D(config)
-        priors = torch.from_numpy(model_priors(config)).cuda()
-        template = create_train_state(config, seed=0, device="cuda")
-        _, state, _ = load_checkpoint(ckpt_dir / "last", state_template=template)
-        dm = SyntheticDataModule(root, n_classes=1, batch_size=8, max_objects=16)
-        dm.setup("fit")
-        host_val, host_train = dm.materialize(dm.testsubs), dm.materialize(dm.trainsubs)
-        val = {k: torch.from_numpy(v).cuda() for k, v in host_val.items()
-               if isinstance(v, np.ndarray)}
-        for min_score in (config.min_score, 0.05):
-            low = dataclasses.replace(config, min_score=min_score)
-            with tapped(model) as outs:
-                ev = make_gathered_eval_step(low, model, priors, hard_negative_mining=True)(
-                    eval_view(state), val, np.arange(8), np.ones(8, bool))
-            check_plain_detections(f"trainer's validation batch at min_score {min_score}",
-                                   ev["detections"], *outs[0], priors, low)
+    # one validation batch from the last checkpoint: its detections (K1)
+    # against the plain NMS on the same locs and scores
+    config = SSD3DConfig.from_json_dict(
+        json.loads((ckpt_dir / "last" / "meta.json").read_text())["config"])
+    model = SSD3D(config)
+    priors = torch.from_numpy(model_priors(config)).cuda()
+    template = create_train_state(config, seed=0, device="cuda")
+    _, state, _ = load_checkpoint(ckpt_dir / "last", state_template=template)
+    dm = SyntheticDataModule(root, n_classes=1, batch_size=8, max_objects=16)
+    dm.setup("fit")
+    host_val, host_train = dm.materialize(dm.testsubs), dm.materialize(dm.trainsubs)
+    val = {k: torch.from_numpy(v).cuda() for k, v in host_val.items()
+           if isinstance(v, np.ndarray)}
+    for min_score in (config.min_score, 0.05):
+        low = dataclasses.replace(config, min_score=min_score)
+        with tapped(model) as outs:
+            ev = make_gathered_eval_step(low, model, priors, hard_negative_mining=True)(
+                eval_view(state), val, np.arange(8), np.ones(8, bool))
+        check_plain_detections(f"trainer's validation batch at min_score {min_score}",
+                               ev["detections"], *outs[0], priors, low)
 
-        # the bare gathered step at the recipe's configuration: the loop's
-        # host cost is the trainer's ms per step less this
-        data = {k: torch.from_numpy(v).cuda() for k, v in host_train.items()
-                if isinstance(v, np.ndarray)}
-        step = make_gathered_train_step(config, model, priors,
-                                        AugmentConfig.from_names(["flip", "rotate90", "zoom"]),
-                                        hard_negative_mining=True)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        idx = torch.arange(8, device="cuda")
-        bare = []
-        for _ in range(3):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(10):
-                state, _m = step(state, data, idx, gen)
-            end.record()
-            torch.cuda.synchronize()
-            bare.append(start.elapsed_time(end) / 10)
-        log(f"bare gathered train step at the recipe's configuration (float32 64^3 width 1.0, "
-            f"batch 8, augmentation, hard negative mining): median {float(np.median(bare)):.3f} "
-            f"ms, rounds {[round(v, 3) for v in bare]} (CUDA events) [{card}]")
+    # the bare gathered step at the recipe's configuration: the loop's
+    # host cost is the trainer's ms per step less this
+    data = {k: torch.from_numpy(v).cuda() for k, v in host_train.items()
+            if isinstance(v, np.ndarray)}
+    step = make_gathered_train_step(config, model, priors,
+                                    AugmentConfig.from_names(["flip", "rotate90", "zoom"]),
+                                    hard_negative_mining=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    idx = torch.arange(8, device="cuda")
+    bare = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            state, _m = step(state, data, idx, gen)
+        end.record()
+        torch.cuda.synchronize()
+        bare.append(start.elapsed_time(end) / 10)
+    log(f"bare gathered train step at the recipe's configuration (float32 64^3 width 1.0, "
+        f"batch 8, augmentation, hard negative mining): median {float(np.median(bare)):.3f} "
+        f"ms, rounds {[round(v, 3) for v in bare]} (CUDA events) [{card}]")
 
-        # resume from `last` for one more epoch
-        for c in counters:
-            c.launches = 0
-        resumed = train_cli.main([*args, "-en", "recipe", "-cp", str(ckpt_dir / "last"),
-                                  "-me", str(len(hist) + 1)])
-        r_hist = resumed["history"]
-        r_losses = resumed["timings"]["epochs"][0]["train_losses"]
-        log(f"resumed from last: epochs {[h['epoch'] for h in r_hist]}, losses "
-            f"{[round(v, 4) for v in r_losses]}, avg_val_loss {r_hist[0]['avg_val_loss']:.4f}, "
-            f"K1 launches {greedy_nms_cuda.launches}")
-        check([h["epoch"] for h in r_hist] == [len(hist)] and len(r_losses) == 4
-              and all(np.isfinite(r_losses)), "the resumed run did not train one more epoch")
-        check(greedy_nms_cuda.launches == 5, "the resumed metric epoch did not launch K1 5 times")
+    # resume from `last` for one more epoch
+    for c in counters:
+        c.launches = 0
+    resumed = train_cli.main([*args, "-en", "recipe", "-cp", str(ckpt_dir / "last"),
+                              "-me", str(len(hist) + 1)])
+    r_hist = resumed["history"]
+    r_losses = resumed["timings"]["epochs"][0]["train_losses"]
+    log(f"resumed from last: epochs {[h['epoch'] for h in r_hist]}, losses "
+        f"{[round(v, 4) for v in r_losses]}, avg_val_loss {r_hist[0]['avg_val_loss']:.4f}, "
+        f"K1 launches {greedy_nms_cuda.launches}")
+    check([h["epoch"] for h in r_hist] == [len(hist)] and len(r_losses) == 4
+          and all(np.isfinite(r_losses)), "the resumed run did not train one more epoch")
+    check(greedy_nms_cuda.launches == 5, "the resumed metric epoch did not launch K1 5 times")
     log(f"training entry phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "gen_s": gen_s, "materialize_s": timings["materialize_s"],
             "fit_s": fit_s, "per_step_ms": per_step, "val_s": val_s, "peak": peak,
-            "bare_step_ms": float(np.median(bare)), "bare_rounds": bare}
+            "bare_step_ms": float(np.median(bare)), "bare_rounds": bare, "root": root,
+            "last": ckpt_dir / "last"}
+
+
+def read_predictions(run_dir: Path, subject) -> tuple:
+    """One subject's saved detections in id order: (boxes (n, 6), labels, scores)."""
+    infos = json.loads((run_dir / f"sub-{subject}_preds.json").read_text())
+    rows = [infos[k] for k in sorted(infos, key=int)]
+    return (np.asarray([r[0] for r in rows], np.float32).reshape(-1, 6),
+            np.asarray([r[2] for r in rows], np.int64), np.asarray([r[3] for r in rows],
+                                                                   np.float32))
+
+
+def drive_scoring(card, counters, tmp: Path, root: Path, last: Path) -> dict:
+    """Phase 4d: score phase 4c's ``last`` checkpoint through the user's
+    entry points on the card: ``cli.predict`` on the default path and with
+    ``use_pallas`` + ``use_pallas_tail``, ``cli.eval`` over the recipe's
+    grid, the reference-checkpoint import and a predict on it, then
+    ``cli.tune_lr`` and ``cli.model_insight priors``."""
+    t_phase = time.perf_counter()
+    config = SSD3DConfig.from_json_dict(json.loads((last / "meta.json").read_text())["config"])
+    priors = torch.from_numpy(model_priors(config)).cuda()
+    dm = SyntheticDataModule(root, n_classes=1, batch_size=1)
+    dm.setup("predict")
+    subjects = list(dm.testsubs)
+    check(len(subjects) == 8, f"{len(subjects)} validation subjects, not 8")
+    x1 = torch.from_numpy(next(dm.predict_batches("validation"))["image"]).cuda()
+
+    def run_predict(name, ckpt, out, kernel_operands=False):
+        """cli.predict.main on the card, counted and tapped; checks its files
+        and that every subject's detections equal the plain NMS's on the
+        locs and scores its forward gave."""
+        enters = [tapped] + ([tapped_kernel_operands] if kernel_operands else [])
+        with ExitStack() as stack:
+            taps = [stack.enter_context(on_first_forward(SSD3D, e)) for e in enters]
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            rc = predict_cli.main(["-d", str(root), "-m", str(ckpt), "-o", str(out),
+                                   *recipe.PREDICT_FLAGS, "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = [c.launches for c in counters]
+        check(rc == 0 and len(taps[0]) == 1, f"predict [{name}] failed or built several models")
+        outs = taps[0][0]
+        run_dir = out / "validation_set" / "min_score_0.0"
+        names = {p.name for p in run_dir.iterdir()}
+        want = {f"sub-{s}_preds.{e}" for s in subjects for e in ("json", "csv", "nii.gz")}
+        want |= {f"aa_metrics_per_subject_(min_IoU={iou}).json" for iou in (0.5, 0.1)}
+        check(want <= names, f"predict [{name}] lacks {sorted(want - names)[:4]}")
+        check(len(outs) == len(subjects) and launches[0] == len(subjects),
+              f"predict [{name}]: {len(outs)} forwards and K1 launched {launches[0]} times for "
+              f"{len(subjects)} batches of one volume")
+        kw = dict(n_classes=config.n_classes, top_k=100)
+        n_det = 0
+        for subj, (locs, scores) in zip(subjects, outs):
+            boxes, cscores, valid = nms_candidates(locs, scores, priors, min_score=0.0, **kw)
+            plain = select_detections(boxes, cscores,
+                                      greedy_nms(boxes, valid, config.max_overlap), **kw)
+            db, dl, ds = (a[0] for a in detections_to_lists(plain))
+            keep = dl != 0
+            saved = read_predictions(run_dir, subj)
+            for a, b in zip(saved, (db[keep], dl[keep], ds[keep])):
+                check(a.shape == b.shape and np.array_equal(a, b),
+                      f"predict [{name}] subject {subj}: saved detections != plain NMS")
+            n_det += len(saved[0])
+        log(f"cli.predict [{name}]: {len(subjects)} volumes in {wall:.3f} s "
+            f"({wall / len(subjects):.4f} s a volume, host clock: the CLI's set-up, NIfTI "
+            f"decode, checkpoint load and file writes included); launches K1 {launches[0]}, "
+            f"K2 {launches[1]}, K3 {launches[2]}; every subject's {n_det} saved detections "
+            f"== the plain NMS's on the same locs and scores [{card}]")
+        return {"wall_s": wall, "s_per_volume": wall / len(subjects), "launches": launches,
+                "outs": outs, "run_dir": run_dir, "taps": taps, "detections": n_det}
+
+    def step_ms(ckpt):
+        cfg, state = predict_cli.load_predict_state(ckpt, "cuda")
+        step = make_predict_step(cfg, SSD3D(cfg), model_priors(cfg), min_score=0.0, top_k=100)
+        return [cuda_ms(lambda: step(state, x1), iters=10) for _ in range(3)]
+
+    # the default path
+    default = run_predict("default path", last, tmp / "preds")
+    check(default["launches"][1:] == [0, 0], "K2 or K3 launched on the default path")
+    default["step_ms"] = step_ms(last)
+
+    # use_pallas + use_pallas_tail: a copy of the checkpoint with the flags set
+    flagged_ckpt = tmp / "last_flagged"
+    shutil.copytree(last, flagged_ckpt)
+    meta = json.loads((flagged_ckpt / "meta.json").read_text())
+    meta["config"].update(use_pallas=True, use_pallas_tail=True)
+    (flagged_ckpt / "meta.json").write_text(json.dumps(meta, indent=2))
+    flagged = run_predict("use_pallas + use_pallas_tail", flagged_ckpt, tmp / "preds_flagged",
+                          kernel_operands=True)
+    flagged["step_ms"] = step_ms(flagged_ckpt)
+    dw, tail = flagged["taps"][1][0]
+    base = SSD3D(dataclasses.replace(config, use_pallas=True, use_pallas_tail=True)).base
+    k2_blocks = sum(1 for blk in base.features[:base.tail_from] if getattr(blk, "use_pallas", False)
+                    and blk.strides == (1, 1, 1) and blk.conv1.in_channels % 128 == 0)
+    tail_x, tail_layers, tail_emit = tail[0]
+    specs = [(*layer["pw_w"].shape, int(layer["stride"])) for layer in tail_layers]
+    k3_plan = plan_tail(torch.float32, tuple(tail_x.shape), specs)
+    k2_plan = plan_depthwise(torch.float32, tuple(dw[0][0].shape))
+    expected = [len(subjects), len(subjects) * k2_blocks, len(subjects) * k3_plan.launches]
+    log(f"predict [use_pallas + use_pallas_tail] at {config.input_size} {config.dtype}: K2 takes {k2_blocks} block(s) "
+        f"a forward ({describe(k2_plan)}), K3 {k3_plan.launches} launch(es) a forward "
+        f"({k3_plan.variant}); expected launches {expected}, counted {flagged['launches']}")
+    check(flagged["launches"] == expected and k2_blocks > 0,
+          "the flagged predict did not launch K1, K2 and K3 as planned")
+    dw_check = compare_dw("predict, flagged, layer 3", *dw[0])
+    tail_check = compare_tail("predict, flagged, layers 4-7", tail_x, tail_layers, tail_emit)
+    rel = {"locs": 0.0, "scores": 0.0}
+    for (fl, fs), (dl_, ds_) in zip(flagged["outs"], default["outs"]):
+        for key, a, b in (("locs", fl, dl_), ("scores", fs, ds_)):
+            rel[key] = max(rel[key], float((a - b).norm() / b.norm()))
+    same, det_rel = 0, 0.0
+    for subj in subjects:
+        fs, ds_ = (read_predictions(r["run_dir"], subj)[2] for r in (flagged, default))
+        same += (flagged["run_dir"] / f"sub-{subj}_preds.json").read_bytes() == (
+            default["run_dir"] / f"sub-{subj}_preds.json").read_bytes()
+        check(len(fs) == len(ds_), f"subject {subj}: {len(fs)} flagged detections, "
+              f"{len(ds_)} on the default path")
+        a, b = np.sort(fs)[::-1], np.sort(ds_)[::-1]
+        det_rel = max(det_rel, float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)))
+    log(f"flagged vs default path: locs/scores relative error {rel['locs']:.3e} / "
+        f"{rel['scores']:.3e}, the saved detections' scores (sorted, per subject) "
+        f"{det_rel:.3e}, largest over the volumes (tolerance {PATHS_MAX_REL_ERR}); equal "
+        f"detection counts; {same} of {len(subjects)} subjects' files byte-equal")
+    check(max(*rel.values(), det_rel) <= PATHS_MAX_REL_ERR,
+          "the flagged predict's locs, scores or detections disagree with the default path's")
+    for name, r in (("default", default), ("flagged", flagged)):
+        log(f"predict step [{name}] batch 1, {config.input_size} {config.dtype} width "
+            f"{config.width_mult}, min_score 0.0, top_k 100: "
+            f"median {float(np.median(r['step_ms'])):.3f} ms, rounds "
+            f"{[round(v, 3) for v in r['step_ms']]} (CUDA events) [{card}]")
+
+    # eval over the recipe's grid, on the default path's run
+    t0 = time.perf_counter()
+    recipe.evaluate_grid(root, tmp / "preds")
+    eval_s = time.perf_counter() - t0
+    metric_files = sorted(default["run_dir"].glob("metrics_(*.json"))
+    check(len(metric_files) == len(recipe.EVAL_GRID),
+          f"eval wrote {len(metric_files)} metric files")
+    for path in metric_files:
+        data = json.loads(path.read_text())
+        check({"mAP", "precision", "recall", "f1_score"} <= set(data), f"{path.name} lacks keys")
+    points = plots.operating_points(default["run_dir"])
+    log(f"cli.eval: {len(metric_files)} metric files in {eval_s:.3f} s (host); operating-point "
+        f"maxima after {RECIPE_STEPS + 4} steps (a check that scoring runs, not a quality "
+        f"claim): {json.dumps(points)}")
+
+    # the reference-checkpoint import: `last` as a Lightning-style .ckpt
+    template = create_train_state(config, seed=0, device="cuda")
+    _, state, _ = load_checkpoint(last, state_template=template)
+    torch.save({"state_dict": {k: v.detach().cpu() for k, v in state.state_dict().items()},
+                "epoch": 0}, tmp / "last.ckpt")
+    import_cli.main(["-m", str(tmp / "last.ckpt"), "-o", str(tmp / "imported"),
+                     "--n_classes", str(config.n_classes),
+                     "--input_size", *map(str, config.input_size),
+                     "-pl", " ".join(map(str, config.feature_layers)),
+                     "-bpl", str(config.boxes_per_location), "-wm", str(config.width_mult),
+                     "--device", "cuda"])
+    imported = run_predict("imported checkpoint", tmp / "imported", tmp / "preds_imported")
+    for s in subjects:
+        for ext in ("json", "csv"):
+            name = f"sub-{s}_preds.{ext}"
+            check((imported["run_dir"] / name).read_bytes()
+                  == (default["run_dir"] / name).read_bytes(),
+                  f"the imported checkpoint's {name} differs from the original's")
+    log("imported checkpoint: every subject's saved detections equal the original run's")
+
+    # the tools
+    t0 = time.perf_counter()
+    suggestion = tune_lr_cli.main(["-d", str(root), "-b", "8", "-n", str(TUNE_LR_STEPS),
+                                   "-o", str(tmp / "lr.json"), "--device", "cuda"])
+    tune_s = time.perf_counter() - t0
+    history = json.loads((tmp / "lr.json").read_text())["history"]
+    log(f"cli.tune_lr: {len(history)} steps in {tune_s:.3f} s, suggestion {suggestion:.3e}, "
+        f"losses {[round(h['loss'], 4) for h in history]} [{card}]")
+    check(np.isfinite(suggestion) and suggestion > 0 and len(history) >= 3,
+          "tune_lr gave no finite suggestion")
+    paths = insight_cli.main(["priors", "-cp", str(last), "-o", str(tmp / "insight")])
+    check(len(paths) == len(config.feature_layers)
+          and all(load_nifti(p).data.max() > 0 for p in paths),
+          "model_insight priors wrote no wireframes")
+    log(f"cli.model_insight priors: {[p.name for p in paths]}")
+    log(f"scoring phase {time.perf_counter() - t_phase:.1f} s")
+    return {"default": default, "flagged": flagged, "imported": imported, "eval_s": eval_s,
+            "points": points, "dw_check": dw_check, "tail_check": tail_check,
+            "paths_rel_err": rel, "tune_lr_s": tune_s, "suggestion": suggestion}
 
 
 def profile_training(train, card) -> None:
@@ -1156,8 +1401,11 @@ def main() -> int:
 
     # 4b. the training path
     train = drive_training(card, counters)
-    # 4c. the training entry point
-    entry = drive_training_entry(card, counters)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # 4c. the training entry point
+        entry = drive_training_entry(card, counters, Path(tmp))
+        # 4d. the predict and eval entry points, the import and the tools
+        scoring = drive_scoring(card, counters, Path(tmp), entry["root"], entry["last"])
 
     # 5. times on the card. Each kernel, its plain version and (for K2) the
     # cuDNN sequence it replaces are timed twice: per call with CUDA events
@@ -1321,6 +1569,9 @@ def main() -> int:
         "device_split_ms_n128": timed["K1 N=128 K=1000"]["split"],
         "launches_top_k_395": k1_wide,
         "launches_training_entry": entry["launches"][0],
+        "launches_predict_default": scoring["default"]["launches"][0],
+        "launches_predict_flagged": scoring["flagged"]["launches"][0],
+        "launches_predict_imported": scoring["imported"]["launches"][0],
         "ms_k3942": timed[f"K1 N=8 K={WIDE_K}"]["kernel_ms"],
         "rounds_ms_k3942": timed[f"K1 N=8 K={WIDE_K}"]["kernel_rounds_ms"],
         "call_ms_k3942": timed[f"K1 N=8 K={WIDE_K}"]["kernel_call_ms"],
@@ -1343,8 +1594,10 @@ def main() -> int:
         "replaces": "mslesions3d_tpu/kernels/depthwise.py:82",
         "launches": k2_fused,
         "launches_training_path": train["launches"][1],
-        "max_abs_err": max(dw_err, train["dw_check"][1]),
-        "mismatches": dw_mismatches + train["dw_check"][0],
+        "launches_predict_flagged": scoring["flagged"]["launches"][1],
+        "max_abs_err": max(dw_err, train["dw_check"][1], scoring["dw_check"][1]),
+        "mismatches": dw_mismatches + train["dw_check"][0] + scoring["dw_check"][0],
+        "max_abs_err_predict_f32": scoring["dw_check"][1],
         "max_abs_err_training_path": train["dw_check"][1],
         "ms": k2["kernel_ms"],
         "call_ms": k2["kernel_call_ms"],
@@ -1374,7 +1627,9 @@ def main() -> int:
         "replaces": "mslesions3d_tpu/kernels/tail.py:106",
         "launches": k3_fused,
         "launches_training_path": train["launches"][2],
-        "max_abs_err": max(tail_err[8], train["tail_check"][0]),
+        "launches_predict_flagged": scoring["flagged"]["launches"][2],
+        "max_abs_err": max(tail_err[8], train["tail_check"][0], scoring["tail_check"][0]),
+        "max_abs_err_predict_f32": scoring["tail_check"][0],
         "max_abs_err_training_path": train["tail_check"][0],
         "differing_share_training_path": train["tail_check"][1],
         "differing_share": tail_share[8],
@@ -1405,6 +1660,15 @@ def main() -> int:
         "cli_train_s": entry["fit_s"], "trainer_ms_per_step": entry["per_step_ms"],
         "bare_step_ms": entry["bare_step_ms"], "validation_s": entry["val_s"],
         "peak_bytes": entry["peak"], "card": card}))
+    log("scoring: " + json.dumps({
+        "predict_s_per_volume": {k: scoring[k]["s_per_volume"]
+                                 for k in ("default", "flagged", "imported")},
+        "predict_step_ms": {k: scoring[k]["step_ms"] for k in ("default", "flagged")},
+        "launches_per_volume": {k: [n / 8 for n in scoring[k]["launches"]]
+                                for k in ("default", "flagged", "imported")},
+        "eval_s": scoring["eval_s"], "operating_points": scoring["points"],
+        "paths_rel_err": scoring["paths_rel_err"], "tune_lr_s": scoring["tune_lr_s"],
+        "tune_lr_suggestion": scoring["suggestion"], "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

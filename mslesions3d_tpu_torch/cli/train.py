@@ -9,7 +9,8 @@ here: the card (``cuda``, the default; it raises without one) or ``cpu``.
 Additions over the reference: --dtype bfloat16, --max_objects (GT
 padding), --hard_negative_mining, and the JAX package's --data_parallel,
 --spatial_shards, --patch_size and --device_boxes, which raise until their
-ROADMAP items are ported.
+ROADMAP items are ported. A float32 config trains in IEEE float32: TF32 is
+off for convolutions and matmuls (``train.state.use_ieee_float32``).
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ import dataclasses
 import json
 
 import numpy as np
-import torch
 
 from ..data.augment import AugmentConfig
 from ..data.datasets import LesionsDataModule, SyntheticDataModule
 from ..models.ssd3d import SSD3DConfig
 from ..train.loop import Trainer, TrainerConfig
+from ..train.state import resolve_device, use_ieee_float32
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -142,9 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("cli.train: no CUDA device is available; pass --device cpu to "
-                           "train on the CPU")
+    resolve_device(args.device, "cli.train")
+    use_ieee_float32()
 
     try:
         layers = [int(x) for x in args.prediction_layers.split()]

@@ -11,6 +11,8 @@ from .state import (
     create_train_state,
     eval_view,
     make_optimizer,
+    resolve_device,
+    use_ieee_float32,
 )
 from .steps import (
     make_eval_step,
@@ -22,7 +24,8 @@ from .steps import (
 
 __all__ = [
     "AdamL2", "TrainState", "cosine_annealing_schedule", "create_train_state", "eval_view",
-    "make_optimizer", "make_eval_step", "make_gathered_eval_step", "make_gathered_train_step",
-    "make_predict_step", "make_train_step", "CheckpointManager", "load_checkpoint",
-    "save_checkpoint", "MetricsLogger", "Trainer", "TrainerConfig",
+    "make_optimizer", "resolve_device", "use_ieee_float32", "make_eval_step",
+    "make_gathered_eval_step", "make_gathered_train_step", "make_predict_step", "make_train_step",
+    "CheckpointManager", "load_checkpoint", "save_checkpoint", "MetricsLogger", "Trainer",
+    "TrainerConfig",
 ]

@@ -163,14 +163,25 @@ def eval_view(state: TrainState) -> TrainState:
     return state.replace(params=state.ema_params)
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device, caller: str = "create_train_state") -> torch.device:
+    """``device`` as a torch.device; "cuda" without a card raises."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "create_train_state: no CUDA device is available; pass device='cpu' to train "
-            "on the CPU"
+            f"{caller}: no CUDA device is available; pass device='cpu' (--device cpu on "
+            "the command line) to run on the CPU"
         )
     return device
+
+
+def use_ieee_float32() -> None:
+    """Run float32 convolutions and matmuls in IEEE float32: TF32 off for
+    cuDNN and cuBLAS (torch leaves cuDNN's TF32 on by default). A config's
+    ``dtype="float32"`` means this; bfloat16 compute is unaffected. The
+    entry points that run the model (cli.train, cli.predict, cli.tune_lr)
+    call it."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def create_train_state(config: SSD3DConfig, seed: int = 0, device="cuda",
@@ -185,7 +196,7 @@ def create_train_state(config: SSD3DConfig, seed: int = 0, device="cuda",
     kept ``channels_last_3d``, the model's layout. EMA, when on, starts at
     the initial params.
     """
-    device = _resolve_device(device)
+    device = resolve_device(device)
     master = SSD3D(dataclasses.replace(config, dtype="float32"),
                    generator=torch.Generator().manual_seed(seed))
     if state_dict is not None:

@@ -122,16 +122,40 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((REPO / "mslesions3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scripts = [REPO / "chip_smoke.py", REPO / "trained_check.py"]
+    files = sorted((REPO / "mslesions3d_tpu_torch").rglob("*.py")) + scripts
     assert len(files) > 10
-    scanned = {str(f.relative_to(REPO / "mslesions3d_tpu_torch")) for f in files[:-1]}
+    scanned = {str(f.relative_to(REPO / "mslesions3d_tpu_torch")) for f in files[:-2]}
     assert {"data/nifti.py", "data/generate.py", "data/boxes_from_seg.py", "data/transforms.py",
             "data/datasets.py", "data/prefetch.py", "train/checkpoints.py", "train/logging.py",
-            "train/loop.py", "cli/train.py"} <= scanned
+            "train/loop.py", "cli/train.py", "utils/prefetch.py", "cli/predict.py",
+            "cli/eval.py", "train/torch_import.py", "cli/import_torch.py", "cli/tune_lr.py",
+            "cli/model_insight.py", "cli/stats_objects.py", "cli/plots.py",
+            "cli/recipe.py"} <= scanned
     offenders = {
         str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files
     }
     assert {f: bad for f, bad in offenders.items() if bad} == {}
+
+
+OPTIONAL = {"matplotlib", "seaborn", "pandas"}
+
+
+def test_port_imports_plotting_packages_only_where_it_draws():
+    """The card's machine has no matplotlib, seaborn or pandas: no module
+    of the port imports them at its top level."""
+    files = sorted((REPO / "mslesions3d_tpu_torch").rglob("*.py"))
+    top = {}
+    for f in files:
+        tree = ast.parse(f.read_text(), filename=str(f))
+        names = set()
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                names.add(node.module.split(".")[0])
+        top[str(f.relative_to(REPO))] = sorted(names & OPTIONAL)
+    assert {f: bad for f, bad in top.items() if bad} == {}
 
 
 def test_detector_defaults_to_the_card():

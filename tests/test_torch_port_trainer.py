@@ -33,6 +33,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from test_torch_port_predict import assert_ieee_float32, tf32_on  # noqa: F401 (a fixture)
 from test_torch_port_train_step import assert_params_close
 
 from mslesions3d_tpu.cli import train as jax_cli
@@ -274,7 +275,7 @@ def test_parser_takes_every_jax_flag():
     assert ours == ref
 
 
-def test_cli_train_end_to_end(dataset_root, tmp_path):
+def test_cli_train_end_to_end(dataset_root, tmp_path, tf32_on):
     result = cli.main(["-d", str(dataset_root), "-b", "8", "-wm", "0.25", "-lr", "0.003",
                        "-th", "0.1", "0.2", "-bpl", "3", "--alpha", "2", "-a", "flip",
                        "rotate90", "zoom", "-sr", "cosine_annealed", "--hard_negative_mining",
@@ -286,3 +287,4 @@ def test_cli_train_end_to_end(dataset_root, tmp_path):
     assert result["config"]["boxes_per_location"] == 3 and result["config"]["t_max"] == 4
     ckpts = sorted(p.name for p in (tmp_path / "cli" / "checkpoints").iterdir())
     assert len(ckpts) == 3 and ckpts[-1] == "last"
+    assert_ieee_float32()  # a float32 config trains without TF32
