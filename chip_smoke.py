@@ -94,7 +94,33 @@ Phases (any failure exits non-zero and prints no result line):
    suggests a finite lr; ``cli.model_insight priors`` writes the prior
    wireframes. Times: seconds a volume of each predict (host clock) and the
    predict step's ms (CUDA events), eval's seconds.
-5. times on the card: K1 (at K = 1000, and at K = 3942 for N = 8 and 32),
+4e. full-resolution volumes, each run with the launch counts set to 0 just
+   before it and read just after. The sliding window at BASELINE config #3
+   (the headline model with its BN calibrated, seeded 192x224x192 volumes
+   in 27 patches of 96^3) at volume_batch 1 and 4, on the default path and
+   with both flags: every K1 launch (a chunk's per-patch ``detect_objects``
+   and the stitch: 2 a call) keeps what the plain NMS keeps on the same
+   candidates, K2 and K3 launch once a chunk's forward (as ``plan_tail``
+   gives) and are held against their plain versions on the operands this
+   path gave them; volumes/s, device ms a call and peak memory. One call at
+   top_k 395, whose stitch (K = 3950) takes the wide walk. Then 32 volumes
+   of 96^3 generated into the temporary directory, ``cli.train --patch_size
+   64 64 64`` for 24 steps with the full-volume validation through the
+   sliding window on every epoch, and ``cli.predict -sw 1`` on the
+   validation volumes, every K1 launch of both held against the plain NMS;
+   the 64^3 bf16 train step at batch 64 with and without ``remat`` (the
+   step's peak memory must fall, and the memory the forward keeps for the
+   backward is logged; the first step's loss and gradient norm and the second
+   step's loss agree within 4e-3, and the BN running statistics after the
+   first step within 1e-3, so they moved once); the ConvNet
+   (``convnet_maxpool_double``, layers 6 and 9, 64^3 bf16, full widths,
+   dropout from the step's generator): 10 steps at batch 8 (finite losses,
+   the last below the first) and an eval step whose detections (K1) equal
+   the plain NMS's; ``materialize`` with ``device_boxes`` (connected
+   components on the card) gives the host path's boxes.
+5. times on the card: K1 (at K = 1000, and at K = 3942 for N = 8 and 32;
+   on the full-volume path: a chunk's per-patch NMS at N = 32, K = 500 and
+   the stitch at V = 1 and 4, K = 1000, and at top_k 395, K = 3950),
    K2 and K3 beside their plain versions and bounds (and K2 at layers
    3/5/7 at batch 8 and layer 3 at batch 32 beside the cuDNN conv + BN +
    ReLU it replaces, its first version (the direct variant) and one
@@ -128,6 +154,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.func import functional_call
 from torch.profiler import ProfilerActivity, profile
 
 from mslesions3d_tpu_torch.cli import import_torch as import_cli
@@ -143,12 +170,16 @@ from mslesions3d_tpu_torch.data.nifti import load_nifti
 from mslesions3d_tpu_torch.kernels.build import build, find_nvcc
 from mslesions3d_tpu_torch.kernels.depthwise import (
     depthwise_bn_relu,
+    depthwise_taps,
     fused_depthwise_bn_relu_cuda,
     plan_depthwise,
 )
 from mslesions3d_tpu_torch.kernels.nms import greedy_nms, greedy_nms_cuda, plan_nms
 from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, plan_tail, tail_reference
+from mslesions3d_tpu_torch.models.losses import multibox_loss_from_config
 from mslesions3d_tpu_torch.models.ssd3d import SSD3D, SSD3DConfig, model_priors
+from mslesions3d_tpu_torch import sliding_window
+from mslesions3d_tpu_torch.ops import nms as nms_ops
 from mslesions3d_tpu_torch.ops.metrics import calculate_mAP
 from mslesions3d_tpu_torch.ops.nms import (
     detect_objects,
@@ -167,6 +198,7 @@ from mslesions3d_tpu_torch.train import (
     make_predict_step,
     make_train_step,
 )
+from mslesions3d_tpu_torch.train.steps import _cast
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): float32 outside the
 # tensor cores, bf16 on the tensor cores, and device memory bandwidth.
@@ -202,11 +234,28 @@ TRAIN_BOXES = ((0.2, 0.2, 0.2, 0.5, 0.5, 0.5), (0.6, 0.6, 0.6, 0.8, 0.8, 0.8))
 RECIPE_DATA = {**recipe.DATA, "num_images": 40}
 RECIPE_STEPS = 24
 TUNE_LR_STEPS = 20
+# BASELINE config #3 (bench.py:204-233): the headline model over whole
+# 192x224x192 volumes in 96^3 patches; patch training from disk on 96^3
+# volumes of the recipe's objects (64^3 was the 4k recipe's whole volume),
+# cut to 32 volumes and 24 steps; the ConvNet at the training geometry
+FULL_VOLUME = (192, 224, 192)
+PATCH_DATA = {**recipe.DATA, "num_images": 32, "image_size": (96, 96, 96)}
+PATCH_STEPS = 24
+CONVNET = dict(TRAIN, base_network_config="convnet_maxpool_double",
+               aspect_ratios={6: [1.0], 9: [1.0]})
+# remat against the plain step, bf16: the first step's loss and gradient
+# norm and the second step's loss (one bf16 ulp: the same arithmetic but
+# for the order of cuDNN's sums in the recompute); the BN running statistics
+# after the first step (moved twice, their means would be 90% off)
+REMAT_RTOL = 4e-3
+REMAT_STATS_RTOL = 1e-3
 # K3 in float32 against its plain version (tests/test_torch_gpu_tail.py)
 TAIL_F32_RTOL = TAIL_F32_ATOL = 1e-5
 # K3 in bf16 against its plain version: share of differing elements per
 # emitted map (5, 7); tests/test_torch_port_tail.py sets out why
 TAIL_MAX_DIFFERING = (0.01, 0.15)
+# K3 in bf16 against the float64 chain, in bf16 ulps (compare_tail_exact)
+TAIL_EXACT_ULPS = 2.0
 # the flagged model's locs/scores against the default path's, bf16 at 96^3:
 # relative Frobenius error. The two round differently (K2 once instead of
 # twice, K3 keeps float32 between blocks), each about bf16's 2^-8 per step.
@@ -471,6 +520,59 @@ def compare_tail(name, x, layers, emit):
             f"(bound {max_share}), max abs err {errs[-1]:.3e} (bound: one bf16 ulp at the "
             f"larger of the element's magnitude and a quarter of the map's largest, "
             f"{float(mag.max()):.4f}: {'met' if within else 'NOT met'})")
+        check(within and share < max_share, f"K3 disagrees with its plain version on {name}")
+    return max(errs), shares
+
+
+def tail_float64(x, layers, emit) -> list:
+    """K3's function in float64 with the kernel's rounding points (the
+    weights and each block's depthwise output y in x's dtype), as the
+    referee of ``compare_tail_exact``."""
+    wdtype = x.dtype
+    cur = x.permute(0, 2, 3, 4, 1).double()
+    outs = []
+    for i, layer in enumerate(layers):
+        acc = depthwise_taps(cur, layer["dw_w"].to(wdtype).double(), int(layer["stride"]))
+        y = torch.relu(acc * layer["dw_gamma"].double() + layer["dw_beta"].double())
+        z = torch.matmul(y.float().to(wdtype).double(), layer["pw_w"].to(wdtype).double())
+        cur = torch.relu(z * layer["pw_gamma"].double() + layer["pw_beta"].double())
+        if i in emit:
+            outs.append(cur.permute(0, 4, 1, 2, 3))
+    return outs
+
+
+def compare_tail_exact(name, x, layers, emit):
+    """K3 in bf16 against its plain version, refereed by the float64 chain:
+    (max abs err against the plain version, shares).
+
+    Both are float32 sums of bf16 products in different orders, and a sum a
+    float32 ulp apart can round a block's y to the other bf16 neighbour; four
+    blocks on, the two may lie more than one bf16 ulp apart where each is
+    over one ulp from the float64 chain (BN-calibrated operands at batch
+    32). So the bound: every element of K3 within TAIL_EXACT_ULPS bf16 ulps of the
+    float64 chain at the larger of its magnitude and a quarter of the map's
+    largest, K3's largest such error no more than half an ulp above the
+    plain version's, and the share of elements where K3 and the plain
+    version differ under TAIL_MAX_DIFFERING."""
+    outs = fused_tail_cuda(x, layers, emit)
+    torch.cuda.synchronize()
+    refs = tail_reference(x, layers, emit)
+    exact = tail_float64(x, layers, emit)
+    errs, shares = [], []
+    for j, (out, ref, ex, max_share) in enumerate(zip(outs, refs, exact, TAIL_MAX_DIFFERING)):
+        scale = ulp(torch.maximum(ex.abs(), ex.abs().max() / 4).float(), x.dtype).double()
+        k3_ulps = float(((out.double() - ex).abs() / scale).max())
+        plain_ulps = float(((ref.double() - ex).abs() / scale).max())
+        apart = float(((out.double() - ref.double()).abs() / scale).max())
+        share = float((out != ref).float().mean())
+        errs.append(float((out.float() - ref.float()).abs().max()))
+        shares.append(share)
+        within = k3_ulps <= TAIL_EXACT_ULPS and k3_ulps <= plain_ulps + 0.5
+        log(f"K3 vs plain [{name}] map {j} {tuple(out.shape)}: differing share {share:.5f} "
+            f"(bound {max_share}), max abs err {errs[-1]:.3e}, {apart:.3f} bf16 ulps apart; "
+            f"from the float64 chain: K3 {k3_ulps:.3f} ulps, plain {plain_ulps:.3f} (bound: "
+            f"K3 within {TAIL_EXACT_ULPS} and within the plain's + 0.5: "
+            f"{'met' if within else 'NOT met'})")
         check(within and share < max_share, f"K3 disagrees with its plain version on {name}")
     return max(errs), shares
 
@@ -1147,6 +1249,343 @@ def drive_scoring(card, counters, tmp: Path, root: Path, last: Path) -> dict:
             "paths_rel_err": rel, "tune_lr_s": tune_s, "suggestion": suggestion}
 
 
+# ---------------------------------------------------------------- full resolution
+@contextmanager
+def recorded_nms():
+    """Records every K1 launch made through ``ops.nms`` (the per-patch
+    ``detect_objects``) and ``sliding_window`` (the stitch): its candidates
+    and keep mask, to be held against the plain NMS afterwards. The
+    launches are the path's own; the comparison launches nothing."""
+    calls = []
+
+    def record(boxes, valid, max_overlap, plan=None):
+        keep = greedy_nms_cuda(boxes, valid, max_overlap, plan)
+        calls.append((boxes, valid, max_overlap, keep))
+        return keep
+
+    saved = nms_ops.greedy_nms_cuda, sliding_window.greedy_nms_cuda
+    nms_ops.greedy_nms_cuda = sliding_window.greedy_nms_cuda = record
+    try:
+        yield calls
+    finally:
+        nms_ops.greedy_nms_cuda, sliding_window.greedy_nms_cuda = saved
+
+
+def check_recorded(name, calls) -> int:
+    """Every recorded K1 launch against the plain NMS on its candidates;
+    returns the mismatches (0, or the check fails)."""
+    torch.cuda.synchronize()
+    mismatches, shapes = 0, []
+    for boxes, valid, max_overlap, keep in calls:
+        mismatches += int((keep != greedy_nms(boxes, valid, max_overlap)).sum())
+        shapes.append(f"N={boxes.shape[0]} K={boxes.shape[1]} valid {int(valid.sum())} "
+                      f"kept {int(keep.sum())}")
+    log(f"{name}: {len(calls)} K1 launches ({'; '.join(shapes)}), each == the plain NMS on "
+        f"its candidates: mismatches {mismatches}")
+    check(mismatches == 0, f"{name}: K1 disagrees with the plain NMS")
+    return mismatches
+
+
+def peak_breakdown(call, top: int = 4):
+    """Runs ``call()`` with the allocator's history on; returns the bytes
+    allocated during it that were live at its peak, grouped by the port's
+    innermost frame that allocated them, largest first."""
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=200000, context="alloc",
+                                             stacks="python")
+    try:
+        result = call()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    live, total, best, at_best = {}, 0, 0, {}
+    for event in trace:
+        if event["action"] == "alloc":
+            live[event["addr"]] = event
+            total += event["size"]
+            if total > best:
+                best, at_best = total, dict(live)
+        elif event["action"] == "free_completed" and event["addr"] in live:
+            total -= live.pop(event["addr"])["size"]
+    groups = {}
+    for event in at_best.values():
+        frames = [f for f in event.get("frames", []) if "mslesions3d_tpu_torch" in f["filename"]]
+        key = (f"{Path(frames[0]['filename']).name}:{frames[0]['line']}:{frames[0]['name']}"
+               if frames else "other")
+        groups[key] = groups.get(key, 0) + event["size"]
+    return result, best, sorted(groups.items(), key=lambda kv: -kv[1])[:top]
+
+
+def held_for_backward(cfg, state, batch) -> int:
+    """Bytes that the train forward and loss of ``cfg`` leave allocated for
+    the backward: the activations autograd keeps (remat's saving)."""
+    model = SSD3D(cfg).train()
+    leaves = {n: p.detach().requires_grad_() for n, p in state.params.items()}
+    stats = {n: s.clone() for n, s in state.batch_stats.items()}
+    priors = torch.from_numpy(model_priors(cfg)).cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    locs, scores = functional_call(model, (_cast(model, leaves), stats), (batch["image"],))
+    losses = multibox_loss_from_config(cfg, locs, scores, batch["boxes"], batch["labels"],
+                                       batch["box_mask"], priors)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    del locs, scores, losses
+    return held
+
+
+def drive_full_resolution(card, counters, cal_state, tmp: Path) -> dict:
+    """Phase 4e: full-resolution volumes. The sliding window at BASELINE
+    config #3, patch training from disk with full-volume validation and a
+    sliding-window predict, remat, the ConvNet, and device boxes."""
+    t_phase = time.perf_counter()
+    out = {"mismatches": 0, "k1": {}, "k2": {}, "k3": {}, "timing": {}}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    volumes = torch.randn((4, *FULL_VOLUME, 1), generator=gen, device="cuda")
+
+    # 1. the sliding window at config #3: headline model, BN calibrated
+    for name in ("off", "both"):
+        config = SSD3DConfig.create(**HEADLINE, **FLAG_SETTINGS[name])
+        state = create_train_state(config, device="cuda", state_dict=cal_state)
+        for v in (1, 4):
+            key = f"{name} V={v}"
+            run = sliding_window.make_sliding_window_detector(config, FULL_VOLUME,
+                                                              volume_batch=v)
+            x = volumes[0] if v == 1 else volumes
+            run(state, x)  # warm-up: cuDNN's algorithm choice
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with ExitStack() as stack:
+                calls = stack.enter_context(recorded_nms())
+                taps = (stack.enter_context(on_first_forward(SSD3D, tapped_kernel_operands))
+                        if name == "both" else None)
+                for c in counters:
+                    c.launches = 0
+                det = run(state, x)
+                torch.cuda.synchronize()
+                launches = [c.launches for c in counters]
+            peak = torch.cuda.max_memory_allocated()
+            chunks = -(-run.n_patches * v // run.patch_batch)
+            check(launches[0] == chunks + 1 == len(calls),
+                  f"sliding window [{key}]: K1 launched {launches[0]} times for {chunks} "
+                  f"chunks and the stitch")
+            out["mismatches"] += check_recorded(f"sliding window [{key}]", calls)
+            stitch = calls[-1]
+            out["k1"][key] = launches[0]
+            if v == 1 and name == "off":
+                out["stitch_case"] = stitch[:2]
+                out["patch_case"] = calls[0][:2]
+            if v == 4 and name == "off":
+                out["stitch_case_v4"] = stitch[:2]
+            if name == "both":
+                dw, tail = taps[0]
+                tail_x, tail_layers, tail_emit = tail[0]
+                specs = [(*layer["pw_w"].shape, int(layer["stride"])) for layer in tail_layers]
+                k3_plan = plan_tail(tail_x.dtype, tuple(tail_x.shape), specs)
+                check(launches[1] == chunks and launches[2] == chunks * k3_plan.launches,
+                      f"sliding window [{key}]: K2 {launches[1]}, K3 {launches[2]} launches for "
+                      f"{chunks} chunks ({k3_plan.launches} K3 launch(es) a forward)")
+                out["dw_check"] = compare_dw(f"sliding window [{key}], layer 3", *dw[0])
+                out["tail_check"] = compare_tail_exact(f"sliding window [{key}], layers 4-7",
+                                                       tail_x, tail_layers, tail_emit)
+                out["k2"][key], out["k3"][key] = launches[1], launches[2]
+            count = det["count"].cpu()
+            check(det["boxes"].shape == (v, config.top_k, 6) and bool((count > 0).all())
+                  and bool(torch.isfinite(det["boxes"]).all())
+                  and bool(((det["boxes"] >= 0) & (det["boxes"] <= 1)).all()),
+                  f"sliding window [{key}]: malformed detections")
+            device_ms = cuda_ms(lambda: run(state, x), iters=5)
+            iters = 10 if v == 1 else 4
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                det = run(state, x)
+            det["count"].cpu()
+            wall = time.perf_counter() - t0
+            out["timing"][key] = {"volumes_per_s": v * iters / wall, "device_ms": device_ms,
+                                  "peak_bytes": peak, "launches": launches}
+            log(f"sliding window [{key}] {FULL_VOLUME} in {run.n_patches} patches of 96^3 "
+                f"(batches of {run.patch_batch}, {chunks} chunk(s)): launches K1 {launches[0]}, "
+                f"K2 {launches[1]}, K3 {launches[2]}; detections {count.tolist()}; "
+                f"{v * iters / wall:.2f} volumes/s (host clock, volumes on the card), "
+                f"{device_ms:.3f} ms a call (CUDA events), peak memory "
+                f"{peak / 2**30:.3f} GiB [{card}]")
+        del state
+    # top_k 395: the stitch's K = min(3950, 27 x 197) = 3950, the wide walk
+    config = SSD3DConfig.create(**dict(HEADLINE, top_k=395))
+    state = create_train_state(config, device="cuda", state_dict=cal_state)
+    run = sliding_window.make_sliding_window_detector(config, FULL_VOLUME)
+    with recorded_nms() as calls:
+        greedy_nms_cuda.launches = 0
+        det = run(state, volumes[0])
+        out["k1"]["top_k 395"] = greedy_nms_cuda.launches
+    check(calls[-1][0].shape[1] == 3950 and plan_nms(3950).walk == "wide",
+          f"the top_k 395 stitch has K = {calls[-1][0].shape[1]}")
+    out["mismatches"] += check_recorded("sliding window [top_k 395]", calls)
+    out["stitch_case_wide"] = calls[-1][:2]
+    log(f"sliding window [top_k 395]: the stitch's K = 3950 ({describe_nms(plan_nms(3950))}); "
+        f"{int(det['count'][0])} detections")
+    del state, volumes
+    torch.cuda.empty_cache()
+
+    # 2. patch training from disk, full-volume validation, then predict -sw 1
+    root, logs = tmp / "patch_data", tmp / "patch_logs"
+    t0 = time.perf_counter()
+    generate_dataset(root, num_processes=1, **PATCH_DATA)
+    gen_s = time.perf_counter() - t0
+    with recorded_nms() as calls:
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        result = train_cli.main(["-d", str(root), *recipe.TRAIN_FLAGS, "-mi", str(PATCH_STEPS),
+                                 "--patch_size", "64", "64", "64", "-ld", str(logs),
+                                 "-en", "patch", "--device", "cuda"])
+        fit_s = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+    hist = result["history"]
+    losses = [v for e in result["timings"]["epochs"] for v in e["train_losses"]]
+    check(len(losses) == PATCH_STEPS and all(np.isfinite(losses)),
+          f"patch training ran {len(losses)} steps or a loss is not finite")
+    check(all("mAP/validation_full_IoU_0.1" in h for h in hist),
+          "an epoch without the full-volume validation mAP")
+    stitches = [c for c in calls if c[0].shape[0] != 8 or c[0].shape[1] != 1000]
+    out["mismatches"] += check_recorded("cli.train --patch_size 64 (every K1 launch)", calls)
+    out["k1"]["patch training"] = launches[0]
+    check(launches[1] == launches[2] == 0, "K2 or K3 launched in training")
+    log(f"cli.train --patch_size 64 64 64 on {PATCH_DATA['num_images']} volumes of "
+        f"{PATCH_DATA['image_size']} (generated in {gen_s:.3f} s): {len(hist)} epochs, "
+        f"{len(losses)} steps in {fit_s:.3f} s; losses {[round(v, 4) for v in losses]}; "
+        f"full-volume validation mAP@0.1 {[round(h['mAP/validation_full_IoU_0.1'], 4) for h in hist]}, "
+        f"crop mAP@0.1 {[round(h['mAP/validation_IoU_0.1'], 4) for h in hist]}; K1 launches "
+        f"{launches[0]} ({len(stitches)} of them outside the crops' eval and train-metric "
+        f"steps: the sliding window's chunks and stitches) [{card}]")
+    last = Path(result["checkpoint_dir"]) / "last"
+    with recorded_nms() as calls:
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = predict_cli.main(["-d", str(root), "-m", str(last), "-o", str(tmp / "patch_preds"),
+                               *recipe.PREDICT_FLAGS, "-sw", "1", "--device", "cuda"])
+        predict_s = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+    run_dir = tmp / "patch_preds" / "validation_set" / "min_score_0.0"
+    n_subjects = len(list(run_dir.glob("sub-*_preds.json")))
+    check(rc == 0 and n_subjects > 0 and launches[0] == 2 * n_subjects,
+          f"predict -sw 1: {n_subjects} subjects, K1 launched {launches[0]} times")
+    out["mismatches"] += check_recorded("cli.predict -sw 1 (every K1 launch)", calls)
+    out["k1"]["predict -sw 1"] = launches[0]
+    n_det = sum(len(json.loads(p.read_text())) for p in run_dir.glob("sub-*_preds.json"))
+    log(f"cli.predict -sw 1 on {n_subjects} validation volumes of {PATCH_DATA['image_size']} "
+        f"with the 64^3 patch model: {predict_s:.3f} s ({predict_s / n_subjects:.4f} s a "
+        f"volume, host clock, set-up included), K1 {launches[0]} launches (a chunk and a "
+        f"stitch a volume), every one == the plain NMS, so the {n_det} saved detections are "
+        f"the plain NMS's [{card}]")
+    out["timing"]["patch"] = {"generate_s": gen_s, "cli_train_s": fit_s,
+                              "predict_s_per_volume": predict_s / n_subjects}
+
+    # 3. remat: the 64^3 bf16 train step at batch 64, with and without
+    config = SSD3DConfig.create(**TRAIN)
+    batch = train_batch(64, torch.Generator(device="cuda").manual_seed(1))
+    augment = AugmentConfig(**TRAIN_AUGMENT)
+    remat, moved = {}, {}
+    for on in (False, True):
+        cfg = dataclasses.replace(config, remat=on)
+        step = make_train_step(cfg, SSD3D(cfg), model_priors(cfg), augment=augment)
+        state = create_train_state(cfg, seed=0, device="cuda")
+        held = held_for_backward(cfg, state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (first, m), _, groups = peak_breakdown(
+            lambda: step(state, batch, torch.Generator(device="cuda").manual_seed(2)))
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"remat={on}: live at the step's peak, by the port's line that allocated it: "
+            + "; ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in groups))
+        moved[on] = {n: s.clone() for n, s in first.batch_stats.items()}
+        second, m2 = step(first, batch, torch.Generator(device="cuda").manual_seed(4))
+        ms, _ = step_rounds(step, second, batch, torch.Generator(device="cuda").manual_seed(3),
+                            iters=3)
+        remat[on] = {"loss": float(m["total_loss"]), "grad_norm": float(m["grad_norm"]),
+                     "second_loss": float(m2["total_loss"]), "peak_bytes": peak,
+                     "held_bytes": held, "step_ms": float(np.median(ms)), "rounds": ms}
+        del step, state, first, second
+        torch.cuda.empty_cache()
+    rel = {k: abs(remat[True][k] - remat[False][k]) / abs(remat[False][k])
+           for k in ("loss", "grad_norm", "second_loss")}
+    stats_rel = max(float((moved[True][n] - s).abs().max() / s.abs().max())
+                    for n, s in moved[False].items() if n.endswith("running_mean"))
+    log(f"remat, 64^3 bf16 train step at batch 64, without / with: memory the forward leaves "
+        f"for the backward {remat[False]['held_bytes'] / 2**30:.3f} / "
+        f"{remat[True]['held_bytes'] / 2**30:.3f} GiB; the step's peak above the state "
+        f"{remat[False]['peak_bytes'] / 2**30:.3f} / {remat[True]['peak_bytes'] / 2**30:.3f} "
+        f"GiB; median {remat[False]['step_ms']:.3f} / {remat[True]['step_ms']:.3f} ms a step "
+        f"(CUDA events, rounds {[round(v, 3) for v in remat[False]['rounds']]} / "
+        f"{[round(v, 3) for v in remat[True]['rounds']]}); first-step loss "
+        f"{remat[False]['loss']:.6f} / {remat[True]['loss']:.6f}, gradient norm "
+        f"{remat[False]['grad_norm']:.6f} / {remat[True]['grad_norm']:.6f}, second-step loss "
+        f"{remat[False]['second_loss']:.6f} / {remat[True]['second_loss']:.6f} (relative "
+        f"differences {', '.join(f'{v:.2e}' for v in rel.values())}, bound {REMAT_RTOL}); "
+        f"BN running means after the first step: largest relative difference "
+        f"{stats_rel:.2e} (bound {REMAT_STATS_RTOL}) [{card}]")
+    check(remat[True]["peak_bytes"] < remat[False]["peak_bytes"], "remat did not lower the peak")
+    check(max(rel.values()) <= REMAT_RTOL, "remat's losses or gradient norm disagree")
+    check(stats_rel <= REMAT_STATS_RTOL, "remat moved the BN running statistics otherwise")
+    out["timing"]["remat"] = remat
+
+    # 4. the ConvNet at 64^3, full widths: 10 train steps at batch 8, an eval step
+    cfg = SSD3DConfig.create(**CONVNET)
+    model, priors = SSD3D(cfg), torch.from_numpy(model_priors(cfg)).cuda()
+    state = create_train_state(cfg, seed=0, device="cuda")
+    step = make_train_step(cfg, model, priors, augment=augment)
+    batch = train_batch(8, torch.Generator(device="cuda").manual_seed(4))
+    cgen = torch.Generator(device="cuda").manual_seed(5)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, m = step(state, batch, cgen)
+        losses.append(m["total_loss"])
+    losses = [float(v) for v in losses]
+    convnet_s = time.perf_counter() - t0
+    ms, state = step_rounds(step, state, batch, cgen, iters=3)
+    log(f"ConvNet ({cfg.base_network_config}, layers {cfg.feature_layers}, 64^3 bf16, "
+        f"{sum(p.numel() for p in state.params.values()):,} parameters, dropout "
+        f"{cfg.convnet_dropout} from the step's generator): 10 steps at batch 8 in "
+        f"{convnet_s:.3f} s, losses {[round(v, 4) for v in losses]}; median "
+        f"{float(np.median(ms)):.3f} ms a step (CUDA events) [{card}]")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "the ConvNet's losses are not finite or did not fall")
+    low = dataclasses.replace(cfg, min_score=0.05)
+    greedy_nms_cuda.launches = 0
+    with tapped(model) as outs:
+        ev = make_eval_step(low, model, priors)(state, batch)
+    check(greedy_nms_cuda.launches == 1, "the ConvNet's eval step did not launch K1 once")
+    check_plain_detections("ConvNet eval step at min_score 0.05", ev["detections"], *outs[0],
+                           priors, low)
+    out["timing"]["convnet"] = {"losses": losses, "step_ms": float(np.median(ms))}
+    out["k1"]["convnet eval"] = greedy_nms_cuda.launches
+
+    # 5. device boxes: connected components on the card against the host's scipy
+    timings = {}
+    for on in (False, True):
+        dm = SyntheticDataModule(root, n_classes=1, device_boxes=on)
+        dm.setup("fit")
+        t0 = time.perf_counter()
+        timings[on] = (dm.materialize(dm.subjects_list), time.perf_counter() - t0)
+    host, dev = timings[False][0], timings[True][0]
+    for i in range(host["boxes"].shape[0]):
+        h = host["boxes"][i][host["box_mask"][i]]
+        d = dev["boxes"][i][dev["box_mask"][i]]
+        check(h.shape == d.shape and np.allclose(np.sort(h, 0), np.sort(d, 0), atol=1e-6),
+              f"device boxes differ from the host's for volume {i}")
+    log(f"materialize of {host['boxes'].shape[0]} volumes of {PATCH_DATA['image_size']}: "
+        f"host boxes (scipy) {timings[False][1]:.3f} s, device boxes (connected components "
+        f"on the card) {timings[True][1]:.3f} s (NIfTI decode included in both); "
+        f"{int(host['box_mask'].sum())} boxes, the same sets [{card}]")
+    out["timing"]["device_boxes_s"] = (timings[False][1], timings[True][1])
+    log(f"full-resolution phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def profile_training(train, card) -> None:
     for b, calls in ((8, 3), (64, 2)):
         def one_step(b=b):
@@ -1406,6 +1845,8 @@ def main() -> int:
         entry = drive_training_entry(card, counters, Path(tmp))
         # 4d. the predict and eval entry points, the import and the tools
         scoring = drive_scoring(card, counters, Path(tmp), entry["root"], entry["last"])
+        # 4e. full-resolution volumes
+        full = drive_full_resolution(card, counters, cal_state, Path(tmp))
 
     # 5. times on the card. Each kernel, its plain version and (for K2) the
     # cuDNN sequence it replaces are timed twice: per call with CUDA events
@@ -1460,6 +1901,20 @@ def main() -> int:
                 x, tail_layers, (1, 3)),
                 kernel=(partial(fused_tail_cuda, x, tail_layers, (1, 3)), 50),
                 plain=(partial(tail_reference, x, tail_layers, (1, 3)), 10))
+        # K1 on the full-volume path (phase 4e's candidates): a chunk's
+        # per-patch NMS and the stitch at V = 1 and 4, and at top_k 395
+        for key, (boxes, valid) in (("K1 sliding window per-patch", full["patch_case"]),
+                                    ("K1 stitch V=1", full["stitch_case"]),
+                                    ("K1 stitch V=4", full["stitch_case_v4"]),
+                                    ("K1 stitch top_k 395", full["stitch_case_wide"])):
+            bound_ms, bound_by, ops, nbytes = nms_bound(valid)
+            key = f"{key} N={boxes.shape[0]} K={boxes.shape[1]}"
+            log(f"{key} bound: valid share {float(valid.float().mean()):.3f}, {bound_ms:.5f} ms "
+                f"by {bound_by} ({ops:.3e} fp32 ops; {nbytes:,} bytes); "
+                f"{describe_nms(plan_nms(boxes.shape[1]))}")
+            time_calls(key, bound_ms, bound_by,
+                       kernel=(partial(greedy_nms_cuda, boxes, valid, 0.5), 50),
+                       plain=(partial(greedy_nms, boxes, valid, 0.5), 5))
         time_calls(f"K3 per-block variant {tuple(big.shape)} bf16, layers 4-7",
                    *tail_bound(big, tail_layers, (1, 3)),
                    kernel=(partial(fused_tail_cuda, big, tail_layers, (1, 3)), 20),
@@ -1652,6 +2107,27 @@ def main() -> int:
         "shape": "layers 4-7 of the 96^3 model on (8, 128, 12, 12, 12) bf16, 1 launch a call "
                  "(the cluster kernel)",
     }]
+    # the full-volume path (phase 4e): launches by setting, and K1's times at
+    # its two call sites
+    def timed_by_prefix(prefix):
+        return next(t for k, t in timed.items() if k.startswith(prefix))
+
+    full_k1 = {}
+    for prefix, name in (("K1 sliding window per-patch", "per_patch"), ("K1 stitch V=1", "stitch"),
+                         ("K1 stitch V=4", "stitch_v4"), ("K1 stitch top_k 395", "stitch_k3950")):
+        t = timed_by_prefix(prefix)
+        full_k1.update({f"ms_{name}": t["kernel_ms"], f"call_ms_{name}": t["kernel_call_ms"],
+                        f"plain_ms_{name}": t["plain_ms"], f"bound_ms_{name}": t["bound_ms"]})
+    kernels[0].update(launches_full_volume=full["k1"], mismatches_full_volume=full["mismatches"],
+                      **full_k1)
+    kernels[1].update(launches_full_volume=full["k2"],
+                      max_abs_err_full_volume=full["dw_check"][1])
+    kernels[2].update(launches_full_volume=full["k3"],
+                      max_abs_err_full_volume=full["tail_check"][0])
+    kernels[0]["max_abs_err"] = 0.0 if mismatches + full["mismatches"] == 0 else 1.0
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], full["dw_check"][1])
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], full["tail_check"][0])
+    log("full resolution: " + json.dumps({**full["timing"], "card": card}))
     log("training: " + json.dumps({
         "step_ms": train["step_ms"], "eval_step_ms_batch8": train["eval_ms"],
         "peak_bytes": train["peak"], "card": card}))

@@ -8,8 +8,9 @@ CPU tensors use. It serves (``Detector``) and trains (``train``: the
 reference's optimizer, MultiBox matching and loss, device-side
 augmentation, train / eval / predict steps, the ``Trainer`` loop with
 checkpoints; ``data``: the NIfTI and synthetic pipeline;
-``python -m mslesions3d_tpu_torch.cli.train``). This package never imports
-JAX.
+``python -m mslesions3d_tpu_torch.cli.train``), and runs full-resolution
+volumes: patch training (``data.patches``) and sliding-window inference
+(``sliding_window``). This package never imports JAX.
 """
 
 from .data.augment import AugmentConfig

@@ -14,12 +14,15 @@ plus aa_metrics_per_subject_(min_IoU=0.5).json / (min_IoU=0.1).json, under
 the reference layout <out>/<dataset>/<model>/<subset>_set/min_score_<s>/.
 Each predict batch runs the predict step, whose ``detect_objects`` launches
 the NMS kernel K1 on the card (and K2 / K3 when the checkpoint's config sets
-``use_pallas`` / ``use_pallas_tail``). A float32 checkpoint is scored in
-IEEE float32: TF32 is off for convolutions and matmuls, as in training.
+``use_pallas`` / ``use_pallas_tail``). With ``-sw 1`` each volume is tiled
+into the checkpoint's input size and stitched (``sliding_window.py``: K1
+on every chunk of patches and at the stitch); ``-vb N`` buffers N
+same-shape volumes and runs their patch grids in shared device batches. A
+float32 checkpoint is scored in IEEE float32: TF32 is off for convolutions
+and matmuls, as in training.
 
-Not ported yet: sliding-window inference (``-sw``, ``-vb`` > 1,
-``--per_patch_k``; ROADMAP item 15) and its multi-card mode
-(``--sw_data_parallel``; item 17). Setting any of them raises.
+Not ported yet: ``--sw_data_parallel`` (sliding-window patches over several
+cards; ROADMAP item 17), which raises.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import shutil
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..data.boxes_from_seg import segmentation_from_boxes
 from ..data.datasets import LesionsDataModule, SyntheticDataModule
@@ -39,6 +43,7 @@ from ..data.transforms import inverse_map_boxes
 from ..models.ssd3d import SSD3D, model_priors
 from ..ops import metrics as metrics_lib
 from ..ops.nms import detections_to_lists
+from ..sliding_window import make_sliding_window_detector
 from ..train.checkpoints import load_checkpoint
 from ..train.state import (create_train_state, eval_view, resolve_device,
                            use_ieee_float32)
@@ -72,15 +77,15 @@ def build_parser():
     p.add_argument("-si", "--save_images", type=int, default=1)
     p.add_argument("-sw", "--sliding_window", type=int, default=0,
                    help="tile volumes larger than the model input with "
-                        "overlapping patches (not ported yet: raises)")
+                        "overlapping patches + on-device stitching")
     p.add_argument("--overlap", type=float, default=0.25,
                    help="sliding-window patch overlap fraction")
     p.add_argument("-vb", "--volume_batch", type=int, default=1,
                    help="sliding-window throughput mode: batch this many "
-                        "same-shape volumes' patch grids (not ported yet: > 1 raises)")
+                        "same-shape volumes' patch grids into shared device batches")
     p.add_argument("--per_patch_k", type=int, default=None,
                    help="sliding-window: detections kept per patch before "
-                        "stitching (not ported yet: raises)")
+                        "stitching (default max(top_k // 2, 16))")
     p.add_argument("--sw_data_parallel", type=int, default=0,
                    help="sliding-window: shard patch batches over all "
                         "visible cards (not ported yet: raises)")
@@ -102,13 +107,8 @@ def build_parser():
     return p
 
 
-def check_ported(sliding_window=False, volume_batch=1, per_patch_k=None,
-                 sw_data_parallel=False) -> None:
+def check_ported(sw_data_parallel=False) -> None:
     """Raise for the JAX CLI's options that this package does not run yet."""
-    if sliding_window or volume_batch > 1 or per_patch_k is not None:
-        raise NotImplementedError(
-            "sliding-window inference (-sw, -vb > 1, --per_patch_k) is not ported yet "
-            "(ROADMAP item 15)")
     if sw_data_parallel:
         raise NotImplementedError(
             "--sw_data_parallel (sliding-window patches over several cards) is not ported "
@@ -229,46 +229,99 @@ def save_subject_predictions(output_dir, subject, image_shape, boxes, labels, sc
 
 
 def predict_dataset(dataset, state, config, predict_subset="train", min_score=0.5,
-                    top_k=100, output_dir=None, save_images=True, max_overlap=None,
-                    prefetch_depth=2):
+                    top_k=100, output_dir=None, save_images=True,
+                    sliding_window=False, overlap=0.25, max_overlap=None,
+                    volume_batch=1, per_patch_k=None, prefetch_depth=2):
     """Run detection over a subset on the state's device; returns
     per-subject ragged results and their ground truth.
 
-    ``max_overlap`` overrides the checkpoint's NMS suppression IoU.
-    ``prefetch_depth`` assembles host batches (NIfTI load, box derivation)
-    on a background thread while the card runs (``utils/prefetch.py``); 0
-    disables it. The JAX function's sliding-window options are not ported
-    (``main`` raises for their flags).
+    With ``sliding_window`` volumes are tiled into model-sized patches and
+    stitched on the device (``sliding_window.py``), one detector per volume
+    shape. ``volume_batch > 1`` is the sliding-window throughput mode:
+    same-shape subjects are buffered and their patch grids run through one
+    detector in shared device batches (a last partial stack is padded with
+    empty volumes whose results are dropped). ``max_overlap`` overrides the
+    checkpoint's NMS suppression IoU. ``prefetch_depth`` assembles host
+    batches (NIfTI load, box derivation) on a background thread while the
+    card runs (``utils/prefetch.py``); 0 disables it.
     """
     step = make_predict_step(config, SSD3D(config), model_priors(config),
                              min_score=min_score, top_k=top_k, max_overlap=max_overlap)
+    sw_detectors = {}
+
+    def sw_detect(images, n_volumes):  # (V, D, H, W, C), stacked same-shape volumes
+        key = (tuple(images.shape[1:4]), n_volumes)
+        if key not in sw_detectors:
+            sw_detectors[key] = make_sliding_window_detector(
+                config, key[0], overlap=overlap, min_score=min_score, top_k=top_k,
+                max_overlap=max_overlap, per_patch_k=per_patch_k, volume_batch=n_volumes)
+        return sw_detectors[key](state, images)
+
     results, gt = {}, {}
-    for batch in prefetch(dataset.predict_batches(predict_subset), prefetch_depth):
-        images = batch["image"]
-        if tuple(images.shape[1:4]) != tuple(config.input_size):
-            raise SystemExit(
-                f"volumes are {tuple(images.shape[1:4])} but the "
-                f"checkpoint's input size is {tuple(config.input_size)} "
-                "(e.g. a patch-trained model); sliding-window inference "
-                "(predict -sw 1) is not ported yet (ROADMAP item 15)"
+
+    def emit(subj, db, dl, ds, gt_boxes, gt_labels):
+        results[subj] = (db, dl, ds)
+        gt[subj] = (gt_boxes, gt_labels)
+        if output_dir is not None:
+            sample = dataset.get_sample(subj)
+            save_subject_predictions(
+                output_dir, subj, sample["img"].shape[:3], db, dl, ds,
+                affine=sample.get("affine"), min_score=min_score,
+                save_images=save_images,
+                transform_meta=sample.get("transform_meta"),
+                orig_shape=sample.get("orig_shape"),
+                orig_affine=sample.get("orig_affine"),
             )
-        db, dl, ds = detections_to_lists(step(state, images))
+
+    batches = prefetch(dataset.predict_batches(predict_subset), prefetch_depth)
+    if sliding_window and volume_batch > 1:
+        pending: dict = {}
+
+        def flush(entries):
+            imgs = np.stack([e[1] for e in entries])
+            v = imgs.shape[0]
+            if v < volume_batch:  # pad the last partial stack, drop its results
+                imgs = np.concatenate(
+                    [imgs, np.zeros((volume_batch - v, *imgs.shape[1:]), imgs.dtype)])
+            db, dl, ds = detections_to_lists(sw_detect(imgs, volume_batch))
+            for i, (subj, _img, gb, gl) in enumerate(entries):
+                emit(subj, db[i], dl[i], ds[i], gb, gl)
+
+        for batch in batches:
+            for i, subj in enumerate(batch["subjects"]):
+                if subj is None or not batch["batch_mask"][i]:
+                    continue
+                mask = batch["box_mask"][i]
+                image = batch["image"][i]
+                shape = image.shape[:3]
+                pending.setdefault(shape, []).append(
+                    (subj, image, batch["boxes"][i][mask], batch["labels"][i][mask]))
+                if len(pending[shape]) == volume_batch:
+                    flush(pending.pop(shape))
+        for entries in pending.values():
+            flush(entries)
+        return results, gt
+
+    for batch in batches:
+        images = batch["image"]
+        if sliding_window:
+            dets = [sw_detect(images[i][None], 1) for i in range(images.shape[0])]
+            det = {k: torch.cat([d[k] for d in dets]) for k in dets[0]}
+        else:
+            if tuple(images.shape[1:4]) != tuple(config.input_size):
+                raise SystemExit(
+                    f"volumes are {tuple(images.shape[1:4])} but the "
+                    f"checkpoint's input size is {tuple(config.input_size)} "
+                    "(e.g. a patch-trained model) — run full volumes with "
+                    "sliding-window inference: predict -sw 1"
+                )
+            det = step(state, images)
+        db, dl, ds = detections_to_lists(det)
         for i, subj in enumerate(batch["subjects"]):
             if subj is None or not batch["batch_mask"][i]:
                 continue
             mask = batch["box_mask"][i]
-            results[subj] = (db[i], dl[i], ds[i])
-            gt[subj] = (batch["boxes"][i][mask], batch["labels"][i][mask])
-            if output_dir is not None:
-                sample = dataset.get_sample(subj)
-                save_subject_predictions(
-                    output_dir, subj, sample["img"].shape[:3], db[i], dl[i], ds[i],
-                    affine=sample.get("affine"), min_score=min_score,
-                    save_images=save_images,
-                    transform_meta=sample.get("transform_meta"),
-                    orig_shape=sample.get("orig_shape"),
-                    orig_affine=sample.get("orig_affine"),
-                )
+            emit(subj, db[i], dl[i], ds[i], batch["boxes"][i][mask], batch["labels"][i][mask])
     return results, gt
 
 
@@ -304,8 +357,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device, "cli.predict")
     use_ieee_float32()
-    check_ported(bool(args.sliding_window), args.volume_batch, args.per_patch_k,
-                 bool(args.sw_data_parallel))
+    check_ported(bool(args.sw_data_parallel))
     np.random.seed(PREDICT_SEED)
 
     subsets = (["train", "validation", "test"] if args.predict_subset == "all"
@@ -329,8 +381,10 @@ def main(argv=None):
         output_dir = out_root / f"{subset}_set" / f"min_score_{args.min_score}"
         results, gt = predict_dataset(
             dataset, state, config, subset, args.min_score, args.top_k,
-            output_dir, bool(args.save_images), max_overlap=args.max_overlap,
-            prefetch_depth=args.prefetch,
+            output_dir, bool(args.save_images),
+            sliding_window=bool(args.sliding_window), overlap=args.overlap,
+            max_overlap=args.max_overlap, volume_batch=args.volume_batch,
+            per_patch_k=args.per_patch_k, prefetch_depth=args.prefetch,
         )
         for min_iou in (0.5, 0.1):
             m = compute_subjects_mAP(results, gt, config.n_classes, min_iou, output_dir)

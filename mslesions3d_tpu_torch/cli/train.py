@@ -7,9 +7,12 @@ Counterpart of ``mslesions3d_tpu/cli/train.py`` with the same flags and
 defaults, except that the JAX package's ``--platform`` is ``--device``
 here: the card (``cuda``, the default; it raises without one) or ``cpu``.
 Additions over the reference: --dtype bfloat16, --max_objects (GT
-padding), --hard_negative_mining, and the JAX package's --data_parallel,
---spatial_shards, --patch_size and --device_boxes, which raise until their
-ROADMAP items are ported. A float32 config trains in IEEE float32: TF32 is
+padding), --hard_negative_mining, --patch_size (train on patches cropped on
+the device from full-resolution volumes, validated on whole volumes
+through the sliding window; score with ``cli.predict -sw 1``),
+--device_boxes (GT boxes by connected components on the device), and the
+JAX package's --data_parallel and --spatial_shards, which raise until
+ROADMAP item 17 is ported. A float32 config trains in IEEE float32: TF32 is
 off for convolutions and matmuls (``train.state.use_ieee_float32``).
 """
 
@@ -37,8 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="channel subset of multi-contrast volumes (e.g. 0 for FLAIR-only)")
     p.add_argument("--device_boxes", type=int, default=0,
                    help="derive GT boxes with the on-device connected-"
-                        "components kernel instead of host scipy "
-                        "(synthetic dataset; not ported yet: raises)")
+                        "components labelling instead of host scipy "
+                        "(synthetic dataset)")
     p.add_argument("-su", "--subject", type=str, default=None,
                    help="train on a single subject id (debugging)")
     p.add_argument("-p", "--percentage", type=float, default=1.0)
@@ -98,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "cropped ON DEVICE from the full-resolution volumes "
                         "each step (the model/priors are built for the patch "
                         "size; validation uses a deterministic lesion-"
-                        "centered crop). Not ported yet: raises")
+                        "centered crop). Pair with `predict -sw 1` for "
+                        "full-volume inference")
     p.add_argument("--patch_pos_fraction", type=float, default=0.7,
                    help="fraction of patches centered on a ground-truth "
                         "lesion (the rest are uniform random crops)")
@@ -178,6 +182,7 @@ def main(argv=None):
             n_classes=args.n_classes,
             channels=args.channels,
             device_boxes=bool(args.device_boxes),
+            device=args.device,
             subject=args.subject,
             percentage=args.percentage,
             batch_size=args.batch_size,

@@ -14,7 +14,7 @@ the same subjects for a seed, without sklearn.
 
 Volumes are read by the pure-Python NIfTI loader and normalised by
 ``t_normalize_intensity``; the JAX package's native C++ loader is a host
-loader, not a kernel, and has no counterpart here.
+loader, not a kernel, and is not ported yet (ROADMAP item 20).
 
 The LesionsDataModule keeps the reference's BIDS path logic
 (datasets.py:238-259) and preprocessing pipeline (datasets.py:195-236); it
@@ -31,7 +31,10 @@ import warnings
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from ..ops.connected_components import boxes_from_segmentation_device, compact_device_boxes
+from ..train.state import resolve_device
 from .boxes_from_seg import boxes_from_segmentation
 from .nifti import load_nifti
 from .transforms import (
@@ -239,20 +242,23 @@ class SyntheticDataModule(_BaseDataModule):
     Layout: <data_dir>/<images|labels>/sub-XXXX_{image,seg}.nii.gz, optionally
     nested under multiple_objects/{one,double}_class/<dataset_name> like the
     reference's directory scheme.
+
+    ``device_boxes`` derives each sample's boxes with the connected-
+    components labelling of ``ops/connected_components.py`` on ``device``
+    (the card unless the caller asks for the CPU) instead of the host's
+    scipy labelling; the boxes are the same set.
     """
 
     def __init__(self, data_dir, dataset_name=None, n_classes=1, objects="multiple",
                  percentage=1.0, batch_size=8, random_state=DEFAULT_SEED,
                  cache=True, subject=None, max_objects=16, channels=None,
-                 device_boxes=False):
+                 device_boxes=False, device="cuda"):
         super().__init__(batch_size, max_objects, random_state, percentage, subject, cache)
         if n_classes not in (1, 2):
             raise ValueError(f"SyntheticDataModule: n_classes={n_classes}; 1 or 2")
-        if device_boxes:
-            raise NotImplementedError(
-                "device_boxes needs ops/connected_components.py on the card, which is not "
-                "ported yet (ROADMAP item 15); boxes come from the host's scipy labelling")
         self.n_classes = n_classes
+        self.device_boxes = device_boxes
+        self.device = device
         # channel subset of multi-contrast (4-D) volumes, e.g. (0,) for a
         # FLAIR-only ablation of a FLAIR+T1+T2 dataset; None = all channels
         self.channels = tuple(channels) if channels is not None else None
@@ -278,6 +284,16 @@ class SyntheticDataModule(_BaseDataModule):
         if percentage > 0:
             self.subjects_list = self.subjects_list[: int(percentage * len(self.subjects_list))]
 
+    def _boxes_on_device(self, seg):
+        """seg -> (boxes, labels) by the connected-components labelling on
+        ``self.device``, as the host path's dtypes."""
+        seg3 = seg[..., 0] if seg.ndim == 4 else seg
+        boxes, labels, valid = boxes_from_segmentation_device(
+            torch.from_numpy(np.ascontiguousarray(seg3)).to(resolve_device(self.device)),
+            n_classes=self.n_classes, max_objects=self.max_objects)
+        boxes, labels = compact_device_boxes(boxes, labels, valid)
+        return boxes, labels.astype(np.int64)
+
     def _load_sample(self, subject):
         img = load_nifti(self.data_dir / "images" / f"sub-{subject}_image.nii.gz")
         seg = load_nifti(self.data_dir / "labels" / f"sub-{subject}_seg.nii.gz")
@@ -290,8 +306,11 @@ class SyntheticDataModule(_BaseDataModule):
         # pipeline parity: normalize(nonzero) -> boxes ("classes" mode)
         # (datasets.py:397-407)
         sample = t_normalize_intensity(sample, nonzero=True)
-        sample["boxes"], sample["labels"] = boxes_from_segmentation(
-            sample["seg"], "classes", n_classes=self.n_classes)
+        if self.device_boxes:
+            sample["boxes"], sample["labels"] = self._boxes_on_device(sample["seg"])
+        else:
+            sample["boxes"], sample["labels"] = boxes_from_segmentation(
+                sample["seg"], "classes", n_classes=self.n_classes)
         if self.channels is not None and sample["img"].ndim == 4:
             sample["img"] = np.ascontiguousarray(sample["img"][..., self.channels])
         return sample

@@ -1,12 +1,22 @@
-"""Plain 3D ConvNet backbone: the layer plans only.
+"""Plain 3D ConvNet backbone (the alternative to MobileNet).
 
-Counterpart of the plan part of ``mslesions3d_tpu/models/convnet.py``. The
-plans are pure data, kept here so that :func:`..priors.feature_map_infos`
-covers both backbones. The ConvNet modules themselves are not ported yet
-(ROADMAP, "After the main path").
+Counterpart of ``mslesions3d_tpu/models/convnet.py``: the reference's
+ConvNetBase + CONVNET_CONFIGS (lesions3d/base_network.py:18-126), stacks
+of Conv + InstanceNorm + Dropout + PReLU blocks, downsampled by strided
+convs or MaxPool3d(k3, s2, p1); the tower is cut after max(feature_layers).
+The plans are pure data, so that :func:`..priors.feature_map_infos` covers
+both backbones. The model holds no BatchNorm, so its train state carries no
+BN statistics.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from .layers import ConvNormActBlock, MaxPool3d
 
 # (out_channels | 'maxpool3d', stride); padding is always 1.
 config_no_maxpool = (
@@ -46,3 +56,38 @@ def convnet_layer_plan(config_name: str, truncate_after: int | None = None):
         kind = "maxpool" if features == "maxpool3d" else "conv"
         plan.append(dict(kind=kind, features=features, strides=stride))
     return plan
+
+
+class ConvNetBackbone(nn.Module):
+    """Truncated ConvNet tower returning {layer index: feature map}.
+
+    ``features[i]`` is a :class:`..layers.ConvNormActBlock` for a conv entry
+    and a :class:`..layers.MaxPool3d` for a pooling one, so the ``state_dict`` keys
+    are ``base.features.<i>.conv.{weight,bias}`` and
+    ``base.features.<i>.adn.A.weight``. ``forward`` passes ``generator`` to
+    every block's dropout.
+    """
+
+    def __init__(self, in_channels: int, feature_layers: Sequence[int] = (6, 9),
+                 config_name: str = "convnet_maxpool_double", dropout_rate: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.feature_layers = tuple(feature_layers)
+        layers, c_in = [], in_channels
+        for spec in convnet_layer_plan(config_name, max(self.feature_layers)):
+            if spec["kind"] == "maxpool":
+                layers.append(MaxPool3d())
+                continue
+            layers.append(ConvNormActBlock(c_in, spec["features"], spec["strides"],
+                                           dropout_rate=dropout_rate, dtype=dtype))
+            c_in = spec["features"]
+        self.features = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> dict:
+        wanted = set(self.feature_layers)
+        features = {}
+        for i, layer in enumerate(self.features):
+            x = layer(x, generator)
+            if i in wanted:
+                features[i] = x
+        return features

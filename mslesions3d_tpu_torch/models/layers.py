@@ -1,4 +1,4 @@
-"""Building blocks of the MobileNet backbone, NCDHW tensors.
+"""Building blocks of the MobileNet and ConvNet backbones, NCDHW tensors.
 
 Counterpart of ``mslesions3d_tpu/models/layers.py``. Tensors inside the
 model are (N, C, D, H, W) views in ``torch.channels_last_3d`` memory, which
@@ -13,14 +13,22 @@ every block returns it. In training mode BatchNorm normalises with the
 batch statistics and moves its running statistics by
 ``0.9 * old + 0.1 * batch`` with the *biased* batch variance, as the JAX
 package does (a stock ``nn.BatchNorm3d`` moves them with the unbiased one).
+
+In training every conv + BN + ReLU runs through :func:`conv_bn_relu_train`,
+in chunks of samples, keeping no float32 activation for the backward.
+:func:`checkpointed` runs a block with its activations recomputed in the
+backward pass rather than kept (the JAX package's ``remat``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.depthwise import fold_bn, fused_depthwise_bn_relu_cuda
 
@@ -101,6 +109,9 @@ class BatchNorm3d(nn.Module):
         self.epsilon = epsilon
         self.momentum = momentum
         self.fast_variance = fast_variance
+        # off while checkpointed() recomputes the block: the first pass moved
+        # the running statistics already
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -135,17 +146,25 @@ class BatchNorm3d(nn.Module):
             var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
         else:
             var, mean = torch.var_mean(x32, dims, correction=0)
+        if self.update_stats:
+            self.move_running_statistics(mean, var)
+        return self.normalise(x32, mean, var, self.weight, self.bias).to(x.dtype)
+
+    def move_running_statistics(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
             keep = self.momentum
             self.running_mean.copy_(keep * self.running_mean + (1 - keep) * mean)
             self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
+
+    def normalise(self, x32: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                  weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """The float32 affine of training mode on the given batch statistics."""
         centred = x32 - self._channel(mean)
         if self.fast_variance:
-            y = centred * self._channel(torch.rsqrt(var + self.epsilon) * self.weight)
+            y = centred * self._channel(torch.rsqrt(var + self.epsilon) * weight)
         else:
-            y = centred * self._channel(torch.rsqrt(var + self.epsilon)) \
-                * self._channel(self.weight)
-        return (y + self._channel(self.bias)).to(x.dtype)
+            y = centred * self._channel(torch.rsqrt(var + self.epsilon)) * self._channel(weight)
+        return y + self._channel(bias)
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(gamma, beta) of the inference-time affine y = x * gamma + beta."""
@@ -170,6 +189,8 @@ class ConvBNReLU(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv, bn = self[0], self[1]
+        if self.training:
+            return conv_bn_relu_train(conv, bn, x)
         return torch.relu(bn(conv(x)))
 
 
@@ -220,6 +241,243 @@ class DepthwiseSeparableBlock(nn.Module):
                 x.contiguous(memory_format=torch.channels_last_3d), self._dw_weights(),
                 gamma, beta,
             )
+        elif self.training:
+            x = conv_bn_relu_train(self.conv1, self.bn1, x)
         else:
             x = torch.relu(self.bn1(self.conv1(x)))
+        if self.training:
+            return conv_bn_relu_train(self.conv2, self.bn2, x)
         return torch.relu(self.bn2(self.conv2(x)))
+
+
+# elements of the conv's input or output (the larger) that one chunk of a
+# training conv + BN + ReLU works on at a time: its float32 temporaries are
+# 32 MiB each, and what cuDNN allocates in a strided depthwise conv's
+# backward (several times its input) shrinks with the chunk
+CHUNK_ELEMENTS = 1 << 23
+
+
+class _ConvBNReLU(torch.autograd.Function):
+    """relu(bn(conv(x))) in training: BN on the batch statistics, in float32,
+    with no float32 activation kept for the backward.
+
+    The conv and its output z run in chunks of samples: the statistics in
+    one pass over the chunks (two for the centred variance), the
+    normalisation and ReLU in another, so no float32 tensor is ever whole. The backward keeps ``x``, the per-channel statistics and, when
+    ``keep`` is set, z (in the compute dtype); it recomputes the ReLU mask
+    and the normalised input chunk by chunk, sums the two per-channel terms
+    of BN's backward in one pass and forms the gradients of the conv in a
+    second. With ``keep`` off (remat of the stem) z is not kept either: the
+    conv is recomputed chunk by chunk, chunk for chunk the same as in the
+    forward, so the numbers do not depend on ``keep``. The running
+    statistics move in the forward, unless the BN's ``update_stats`` is
+    off.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, gamma, beta, conv, bn, keep):
+        n, c = x.shape[0], weight.shape[0]
+        spatial = [(size + 2 * p - d * (k - 1) - 1) // s + 1 for size, k, s, p, d in zip(
+            x.shape[2:], weight.shape[2:], conv.stride, conv.padding, conv.dilation)]
+        chunks = _chunks(n, max(x[0].numel(), c * math.prod(spatial)))
+        shape, fmt = (n, c, *spatial), torch.channels_last_3d
+        z = None
+        if keep:
+            z = torch.empty(shape, dtype=x.dtype, device=x.device, memory_format=fmt)
+            for sl in chunks:
+                z[sl] = _conv(conv, x[sl], weight)
+        ctx.conv, ctx.bn, ctx.chunks = conv, bn, chunks
+        ctx.count = n * math.prod(spatial)
+        dims = (0, 2, 3, 4)
+        total = torch.zeros(c, dtype=torch.float32, device=x.device)
+        squares = torch.zeros_like(total)
+        for sl in chunks:
+            z32 = _chunk_z(conv, x, weight, z, sl).float()
+            total += z32.sum(dims)
+            if bn.fast_variance:
+                squares += (z32 * z32).sum(dims)
+        mean = total / ctx.count
+        if bn.fast_variance:
+            raw_var = squares / ctx.count - mean * mean
+        else:
+            for sl in chunks:
+                centred = _chunk_z(conv, x, weight, z, sl).float() - bn._channel(mean)
+                squares += (centred * centred).sum(dims)
+            raw_var = squares / ctx.count
+        var = torch.clamp(raw_var, min=0.0)
+        if bn.update_stats:
+            bn.move_running_statistics(mean, var)
+        out = torch.empty(shape, dtype=x.dtype, device=x.device, memory_format=fmt)
+        for sl in chunks:
+            z32 = _chunk_z(conv, x, weight, z, sl).float()
+            out[sl] = torch.relu(bn.normalise(z32, mean, var, gamma, beta).to(x.dtype))
+        ctx.save_for_backward(x, weight, gamma, beta, mean, var, raw_var >= 0, z)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, gamma, beta, mean, var, var_grad, z = ctx.saved_tensors
+        conv, bn = ctx.conv, ctx.bn
+        dims = (0, 2, 3, 4)
+        rstd = torch.rsqrt(var + bn.epsilon)
+        zero = torch.zeros((), dtype=grad.dtype, device=grad.device)
+
+        def recompute(sl):
+            """(the normalised input, the ReLU-masked gradient) of a chunk, in float32."""
+            z32 = _chunk_z(conv, x, weight, z, sl).float()
+            y = bn.normalise(z32, mean, var, gamma, beta).to(x.dtype)
+            g = torch.where(y > 0, grad[sl], zero).float()
+            return (z32 - bn._channel(mean)) * bn._channel(rstd), g
+
+        sum_g = torch.zeros_like(mean)
+        sum_gx = torch.zeros_like(mean)
+        for sl in ctx.chunks:
+            xhat, g = recompute(sl)
+            sum_g += g.sum(dims)
+            sum_gx += (g * xhat).sum(dims)
+        mean_g = bn._channel(sum_g / ctx.count)
+        mean_gx = bn._channel(torch.where(var_grad, sum_gx / ctx.count, 0.0))
+        scale = bn._channel(gamma.float() * rstd)
+        need_x = ctx.needs_input_grad[0]
+        grad_x = torch.empty_like(x) if need_x and len(ctx.chunks) > 1 else None
+        grad_w = torch.zeros(weight.shape, dtype=torch.float32, device=weight.device)
+        for sl in ctx.chunks:
+            xhat, g = recompute(sl)
+            gz = (scale * (g - mean_g - xhat * mean_gx)).to(x.dtype)
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gz, x[sl], weight, None, conv.stride, conv.padding, conv.dilation, False,
+                [0, 0, 0], conv.groups, [need_x, True, False])
+            grad_w += gw.float()
+            if grad_x is not None:
+                grad_x[sl] = gx
+            elif need_x:  # one chunk
+                grad_x = gx
+        return (grad_x, grad_w.to(weight.dtype), sum_gx.to(gamma.dtype),
+                sum_g.to(beta.dtype), None, None, None)
+
+
+def _chunks(n: int, per_sample: int) -> list:
+    """Slices of the batch's ``n`` samples, ``CHUNK_ELEMENTS // per_sample`` a chunk."""
+    step = max(1, CHUNK_ELEMENTS // per_sample)
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def _conv(conv: nn.Conv3d, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.conv3d(x, weight, None, conv.stride, conv.padding,
+                                      conv.dilation, conv.groups)
+
+
+def _chunk_z(conv, x, weight, z, sl):
+    """The conv output of the samples ``sl``: kept, or recomputed in the
+    kept one's layout (the reductions' order follows the layout)."""
+    if z is not None:
+        return z[sl]
+    return _conv(conv, x[sl], weight).contiguous(memory_format=torch.channels_last_3d)
+
+
+def conv_bn_relu_train(conv: nn.Conv3d, bn: BatchNorm3d, x: torch.Tensor,
+                       keep: bool = True) -> torch.Tensor:
+    """relu(bn(conv(x))) in training mode through :class:`_ConvBNReLU`; equal,
+    to float32 rounding, to the plain ``torch.relu(bn(conv(x)))``."""
+    return _ConvBNReLU.apply(x, conv.weight, bn.weight, bn.bias, conv, bn, keep)
+
+
+def checkpointed(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` with its activations recomputed in the backward pass
+    rather than kept (the JAX package's ``remat``).
+
+    A ``ConvBNReLU`` (the stem, whose output is the largest activation of
+    the tower) keeps only its input: :class:`_ConvBNReLU` recomputes its
+    conv chunk by chunk in the backward. Any other block runs under
+    non-reentrant ``torch.utils.checkpoint``
+    with its parameters as inputs, so the recompute uses the tensors of the
+    forward (inside ``functional_call`` they are the caller's, which the
+    module no longer holds when the backward runs). Buffers stay out: the
+    first pass moves the BN running statistics in place, which autograd
+    would reject in a saved input. The recompute runs with every
+    ``BatchNorm3d``'s ``update_stats`` off, so the running statistics move
+    once; its batch statistics are those of the first pass, recomputed from
+    the same input by the same deterministic reduction. ``checkpoint``
+    restores no RNG here (``preserve_rng_state=False``): no MobileNet block
+    draws at random.
+    """
+    if isinstance(module, ConvBNReLU):
+        return conv_bn_relu_train(module[0], module[1], x, keep=False)
+    named = list(module.named_parameters())
+    names = [n for n, _ in named]
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm3d)]
+
+    @contextlib.contextmanager
+    def recompute_context():
+        for bn in bns:
+            bn.update_stats = False
+        try:
+            yield
+        finally:
+            for bn in bns:
+                bn.update_stats = True
+
+    def run(x, *tensors):
+        return functional_call(module, dict(zip(names, tensors)), (x,))
+
+    return checkpoint(run, x, *(t for _, t in named), use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recompute_context()))
+
+
+class ConvNormActBlock(nn.Module):
+    """Conv3d(k3, stride, padding 1, bias) + InstanceNorm + Dropout + PReLU.
+
+    The MONAI ``Convolution`` block of the reference ConvNet backbone
+    (lesions3d/base_network.py:83-92; JAX ``layers.py:261-294``): instance
+    norm over D, H, W per sample and channel in float32 (biased variance,
+    eps 1e-5, no affine), then dropout, then PReLU with one alpha (init
+    0.2). Children follow MONAI's names: ``conv`` and ``adn.A`` (the norm and
+    the dropout hold no parameters).
+
+    Dropout in training keeps an element with probability 1 - rate and
+    scales it by 1 / (1 - rate), as flax's ``nn.Dropout``; the mask is a
+    Bernoulli draw from the ``generator`` passed to ``forward`` (required
+    when training with rate > 0), so the step's explicit generator decides
+    it.
+    """
+
+    def __init__(self, in_features: int, features: int, strides=1, dropout_rate: float = 0.1,
+                 prelu_init: float = 0.2, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout_rate = float(dropout_rate)
+        self.prelu_init = float(prelu_init)
+        self.conv = nn.Conv3d(in_features, features, 3, stride=strides, padding=1, bias=True,
+                              dtype=dtype)
+        self.adn = nn.ModuleDict({"A": nn.PReLU(1, init=prelu_init, dtype=dtype)})
+
+    def reset_prelu(self) -> None:
+        with torch.no_grad():
+            self.adn["A"].weight.fill_(self.prelu_init)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.conv(x)
+        x32 = x.float()
+        var, mean = torch.var_mean(x32, (2, 3, 4), correction=0, keepdim=True)
+        x = ((x32 - mean) * torch.rsqrt(var + 1e-5)).to(x.dtype)
+        if self.training and self.dropout_rate > 0.0:
+            if generator is None:
+                raise ValueError("ConvNormActBlock: dropout in training needs a generator")
+            keep = 1.0 - self.dropout_rate
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+        alpha = self.adn["A"].weight.to(x.dtype)
+        return torch.where(x >= 0, x, alpha * x)
+
+
+def max_pool_3d(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool3d(k3, s2, p1) with -inf padding (lesions3d/base_network.py:79-81)."""
+    return torch.nn.functional.max_pool3d(x, 3, 2, 1)
+
+
+class MaxPool3d(nn.Module):
+    """:func:`max_pool_3d` as a ConvNet layer; it takes (and ignores) the
+    blocks' ``generator``."""
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return max_pool_3d(x)

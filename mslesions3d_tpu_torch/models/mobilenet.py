@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ..kernels.tail import fused_tail_cuda
-from .layers import ConvBNReLU, DepthwiseSeparableBlock
+from .layers import ConvBNReLU, DepthwiseSeparableBlock, checkpointed
 
 # stem_channels, then (channels, n_repeat, stride) groups
 config_mobilenet = (
@@ -67,7 +67,11 @@ class MobileNetBackbone(nn.Module):
     every block past the first wanted feature map as the fused tail K3
     (``kernels/tail.py``) at inference, under the JAX package's condition
     (``mobilenet.py:108-123``). The tail's blocks stay in ``features``, so
-    the ``state_dict`` is the same whatever the flags.
+    the ``state_dict`` is the same whatever the flags. ``remat`` runs every
+    layer under :func:`..layers.checkpointed` when training with gradients
+    on (the JAX package's ``nn.remat`` of each block): activations are
+    recomputed in the backward pass instead of kept. ``forward`` takes the
+    ConvNet's ``generator`` argument and ignores it: no block draws.
     """
 
     def __init__(
@@ -80,9 +84,11 @@ class MobileNetBackbone(nn.Module):
         dtype: torch.dtype = torch.float32,
         use_pallas: bool = False,
         use_pallas_tail: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         self.feature_layers = tuple(feature_layers)
+        self.remat = remat
         plan = mobilenet_layer_plan(config_name, width_mult, cube, max(self.feature_layers))
         layers, c_in = [], in_channels
         for spec in plan:
@@ -106,13 +112,14 @@ class MobileNetBackbone(nn.Module):
             and all(len(set(s["strides"])) == 1 for s in tail_specs)
         )
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> dict:
         wanted = set(self.feature_layers)
         fuse_tail = self.fuse_tail and not self.training
+        remat = self.remat and self.training and torch.is_grad_enabled()
         head = self.features[: self.tail_from] if fuse_tail else self.features
         features = {}
         for i, layer in enumerate(head):
-            x = layer(x)
+            x = checkpointed(layer, x) if remat else layer(x)
             if i in wanted:
                 features[i] = x
         if fuse_tail:

@@ -21,7 +21,8 @@ import torch
 from torch import nn
 
 from ..ops.nms import detect_objects
-from .layers import INIT_SCHEMES, BatchNorm3d, init_conv_
+from .convnet import ConvNetBackbone
+from .layers import INIT_SCHEMES, BatchNorm3d, ConvNormActBlock, init_conv_
 from .mobilenet import MobileNetBackbone
 from .priors import default_scales, feature_map_infos, generate_priors
 
@@ -36,8 +37,8 @@ def _freeze_ratios(aspect_ratios) -> tuple:
 class SSD3DConfig:
     """The JAX package's SSD3DConfig, field for field, so the JSON round-trips.
 
-    The training fields (lr, scheduler, t_max, alpha, focal_*, ema_decay, ...)
-    drive ``train/``; ``remat`` is not ported (training raises).
+    The training fields (lr, scheduler, t_max, alpha, focal_*, ema_decay,
+    remat, ...) drive ``train/``.
     """
 
     n_classes: int = 2
@@ -67,7 +68,7 @@ class SSD3DConfig:
     use_l2_rescale: bool = False
     use_pallas: bool = False  # fused depthwise kernel K2 (kernels/depthwise.py), inference
     use_pallas_tail: bool = False  # fused tail kernel K3 (kernels/tail.py), inference
-    remat: bool = False  # training memory option; not ported: training raises
+    remat: bool = False  # recompute MobileNet blocks in the backward (training memory)
     dtype: str = "float32"  # or "bfloat16"
     init_scheme: str = "torch"
     ema_decay: float = 0.0
@@ -167,18 +168,21 @@ class PredictionHeads(nn.Module):
 class SSD3D(nn.Module):
     """Backbone + heads; images (B, D, H, W, C) -> (locs (B, P, 6), scores (B, P, C)).
 
-    The weights are made on the CPU with ``config.init_scheme`` ("torch",
-    "flax" or "kaiming_relu", see ``layers.init_conv_``) from ``generator``
-    (a fresh generator seeded 0 if none is given); move the model with
-    ``.to(device)`` afterwards.
+    The backbone is MobileNet for a ``mobilenet*`` config and the ConvNet
+    for a ``convnet*`` one. The weights are made on the CPU with
+    ``config.init_scheme`` ("torch", "flax" or "kaiming_relu", see
+    ``layers.init_conv_``) from ``generator`` (a fresh generator seeded 0
+    if none is given); move the model with ``.to(device)`` afterwards.
+    ``forward``'s ``generator`` draws the ConvNet's dropout masks in
+    training.
     """
 
     def __init__(self, config: SSD3DConfig, generator: torch.Generator | None = None):
         super().__init__()
-        if "mobilenet" not in config.base_network_config:
-            raise NotImplementedError(
-                f"backbone {config.base_network_config!r}: only MobileNet is ported yet "
-                "(ROADMAP, 'After the main path')"
+        if not any(k in config.base_network_config for k in ("mobilenet", "convnet")):
+            raise ValueError(
+                "Unknown base network name. Expected 'mobilenet*' or 'convnet*' "
+                f"but got {config.base_network_config!r}"
             )
         if config.init_scheme not in INIT_SCHEMES:
             raise ValueError(f"unknown init_scheme {config.init_scheme!r}; known: {INIT_SCHEMES}")
@@ -189,16 +193,26 @@ class SSD3D(nn.Module):
         )
         # built on the meta device, so no default init runs on the global RNG
         with torch.device("meta"):
-            self.base = MobileNetBackbone(
-                config.input_channels,
-                feature_layers=config.feature_layers,
-                config_name=config.base_network_config,
-                width_mult=config.width_mult,
-                cube=config.cube,
-                dtype=config.compute_dtype,
-                use_pallas=config.use_pallas,
-                use_pallas_tail=config.use_pallas_tail,
-            )
+            if "mobilenet" in config.base_network_config:
+                self.base = MobileNetBackbone(
+                    config.input_channels,
+                    feature_layers=config.feature_layers,
+                    config_name=config.base_network_config,
+                    width_mult=config.width_mult,
+                    cube=config.cube,
+                    dtype=config.compute_dtype,
+                    use_pallas=config.use_pallas,
+                    use_pallas_tail=config.use_pallas_tail,
+                    remat=config.remat,
+                )
+            else:
+                self.base = ConvNetBackbone(
+                    config.input_channels,
+                    feature_layers=config.feature_layers,
+                    config_name=config.base_network_config,
+                    dropout_rate=config.convnet_dropout,
+                    dtype=config.compute_dtype,
+                )
             self.pred_convs = PredictionHeads(config, channels)
             # L2 rescale of the shallowest map: created for checkpoint parity,
             # used only when use_l2_rescale (off in the reference)
@@ -214,21 +228,17 @@ class SSD3D(nn.Module):
                 init_conv_(m, generator, self.config.init_scheme)
             elif isinstance(m, BatchNorm3d):
                 m.reset_parameters()
+            elif isinstance(m, ConvNormActBlock):
+                m.reset_prelu()
         with torch.no_grad():
             self.rescale_factors.fill_(20.0)
 
-    def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, images: torch.Tensor,
+                generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
-        if cfg.remat and self.training:
-            # recomputing a block under torch.utils.checkpoint would move its
-            # BN running statistics twice
-            raise NotImplementedError(
-                "remat=True in training is not ported yet (ROADMAP: recompute without "
-                "updating the BN running statistics twice)"
-            )
         # (B, D, H, W, C) -> (B, C, D, H, W) view with channels_last_3d strides
         x = images.to(cfg.compute_dtype).permute(0, 4, 1, 2, 3)
-        features = self.base(x)
+        features = self.base(x, generator)
         if cfg.use_l2_rescale:
             first = min(features)
             f = features[first].float()

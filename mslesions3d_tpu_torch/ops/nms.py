@@ -48,6 +48,15 @@ def greedy_nms_sequential(boxes_corner: torch.Tensor, valid: torch.Tensor,
     return valid & ~suppress
 
 
+def top_k_stable(scores: torch.Tensor, k: int):
+    """The ``k`` largest entries of each row of ``scores`` (N, M) and their
+    indices, in decreasing order; equal scores go to the lower index, as
+    ``lax.top_k`` has it, on any device (``torch.topk`` orders ties its own
+    way on each)."""
+    values, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return values[:, :k], idx[:, :k]
+
+
 def nms_candidates(predicted_locs, predicted_scores, priors_center, *, n_classes: int,
                    min_score: float, top_k: int):
     """Decode and pick the top-K candidates of every (image, class) row.
@@ -64,7 +73,7 @@ def nms_candidates(predicted_locs, predicted_scores, priors_center, *, n_classes
     decoded = center_to_corner(decode_boxes(predicted_locs.float(), priors_center.float()))
 
     cls_scores = probs[:, :, 1:].transpose(1, 2).reshape(b * cm, num_priors)
-    cand_scores, cand_idx = torch.topk(cls_scores, k, dim=1)  # (N, K), sorted
+    cand_scores, cand_idx = top_k_stable(cls_scores, k)  # (N, K)
     image = torch.arange(b, device=decoded.device).repeat_interleave(cm)[:, None]
     cand_boxes = decoded[image, cand_idx]  # (N, K, 6)
     return cand_boxes, cand_scores, cand_scores > min_score
@@ -85,7 +94,7 @@ def select_detections(cand_boxes, cand_scores, keep, *, n_classes: int, top_k: i
     flat_boxes = cand_boxes.reshape(b, cm * k, 6)
     flat_labels = labels[None, :, None].expand(b, cm, k).reshape(b, cm * k)
 
-    best_scores, best_idx = torch.topk(flat_scores, min(top_k, cm * k), dim=1)
+    best_scores, best_idx = top_k_stable(flat_scores, min(top_k, cm * k))
     sel_valid = best_scores > NEG_INF / 2
     picked_boxes = torch.gather(flat_boxes, 1, best_idx[..., None].expand(-1, -1, 6))
     picked_labels = torch.gather(flat_labels, 1, best_idx)

@@ -29,9 +29,15 @@ reads them on the logging cadence and once at the end of an epoch, so the
 steps queue ahead of the card. The non-finite-loss streak is carried on the
 device in the TrainState and checked on the same cadence.
 
-Not ported yet (ROADMAP): ``data_parallel`` and ``spatial_shards > 1``
-(item 17), ``patch_training`` and with it the sliding-window validation
-(item 19); each raises ``NotImplementedError``.
+With ``patch_training`` the dataset holds full-resolution volumes: each
+train step crops fresh lesion-biased patches of ``config.input_size`` on
+the device, validation's loss takes a deterministic crop, and on metric
+epochs (``patch_val_full_volume``) every validation volume is also scored
+whole through the sliding window (``sliding_window.py``), logged as
+``mAP/validation_full_*``; the crop's loss stays the checkpoint monitor.
+
+Not ported yet (ROADMAP item 17): ``data_parallel`` and ``spatial_shards >
+1``; each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from ..data.prefetch import prefetch_batches
 from ..models.ssd3d import SSD3D, SSD3DConfig, model_priors
 from ..ops import metrics as metrics_lib
 from ..ops.nms import detections_to_lists
+from ..sliding_window import make_sliding_window_detector
 from .checkpoints import CheckpointManager, load_checkpoint
 from .logging import MetricsLogger
 from .state import create_train_state, eval_view, make_optimizer
@@ -77,12 +84,19 @@ class TrainerConfig:
     use_wandb: bool = False
     data_parallel: bool = False  # not ported yet: raises (ROADMAP item 17)
     spatial_shards: int = 1  # > 1 not ported yet: raises (ROADMAP item 17)
-    patch_training: bool = False  # not ported yet: raises (ROADMAP item 19)
+    # train on random lesion-biased patches of config.input_size cropped on
+    # the device from full-resolution volumes (data/patches.py); validation
+    # uses a deterministic lesion-centred crop. The datamodule must yield
+    # volumes >= the patch on every axis.
+    patch_training: bool = False
     patch_pos_fraction: float = 0.7
     # > 1 splits each batch into that many micro-batches whose gradients
     # are averaged before ONE optimizer update (steps.py)
     grad_accum: int = 1
-    patch_val_full_volume: bool = True  # rides on patch_training
+    # under patch training, also score whole validation volumes through the
+    # sliding window on the metric cadence (mAP/validation_full_*); the
+    # crop's loss stays the checkpoint monitor
+    patch_val_full_volume: bool = True
     hard_negative_mining: bool = False
     # keep the materialized dataset on the device and gather batches there
     # by index; streaming (with prefetch) for datasets over the byte cap or
@@ -107,10 +121,6 @@ def _check_ported(cfg: TrainerConfig) -> None:
     if cfg.data_parallel or cfg.spatial_shards > 1:
         raise NotImplementedError(
             "data_parallel and spatial_shards > 1 are not ported yet (ROADMAP item 17)")
-    if cfg.patch_training:
-        raise NotImplementedError(
-            "patch_training (and its sliding-window validation) is not ported yet "
-            "(ROADMAP item 19)")
 
 
 def _host(value):
@@ -187,15 +197,17 @@ class Trainer:
                 print(f"[resume] from {resume} at step {int(state.step)}")
 
         kw = dict(hard_negative_mining=cfg.hard_negative_mining,
-                  grad_accum=max(1, int(cfg.grad_accum)))
+                  grad_accum=max(1, int(cfg.grad_accum)), patch_training=cfg.patch_training,
+                  patch_pos_fraction=cfg.patch_pos_fraction)
         instr_kw = dict(kw, with_detections=True,
                         return_grads=cfg.grad_hist_every_n_steps > 0)
+        eval_kw = dict(with_detections=True, hard_negative_mining=cfg.hard_negative_mining,
+                       patch_training=cfg.patch_training)
         train_step = make_train_step(config, model, priors, augment, **kw)
         # instrumented variant: detections of the training forward (train
         # metric epochs) and the raw gradients (TB histograms)
         train_step_instr = make_train_step(config, model, priors, augment, **instr_kw)
-        eval_step = make_eval_step(config, model, priors, with_detections=True,
-                                   hard_negative_mining=cfg.hard_negative_mining)
+        eval_step = make_eval_step(config, model, priors, **eval_kw)
 
         # ---- data path ----
         # The dataset on the device when it fits: materialize once, copy
@@ -242,9 +254,20 @@ class Trainer:
             train_step_g = make_gathered_train_step(config, model, priors, augment, **kw)
             train_step_instr_g = make_gathered_train_step(config, model, priors, augment,
                                                           **instr_kw)
-            eval_step_g = make_gathered_eval_step(
-                config, model, priors, with_detections=True,
-                hard_negative_mining=cfg.hard_negative_mining)
+            eval_step_g = make_gathered_eval_step(config, model, priors, **eval_kw)
+
+        # whole validation volumes under patch training: sliding-window
+        # detectors built at first use, by (volume shape, volumes at once)
+        sw_val_detectors: dict = {}
+
+        def sw_val_detect(val_state, images):
+            key = (tuple(images.shape[1:4]), images.shape[0])
+            if key not in sw_val_detectors:
+                sw_val_detectors[key] = make_sliding_window_detector(
+                    config, key[0], volume_batch=key[1])
+            return sw_val_detectors[key](val_state, images)
+
+        sw_val_on = cfg.patch_training and cfg.patch_val_full_volume
 
         logger = MetricsLogger(cfg.logdir, cfg.experiment_name, cfg.use_wandb,
                                wandb_config=config.to_json_dict())
@@ -280,7 +303,7 @@ class Trainer:
                 compute_train_metrics = (
                     metric_interval > 0 and epoch % (metric_interval * 2) == 0
                 )
-                accum = {"train": [], "val": []}
+                accum = {"train": [], "val": [], "val_full": []}
                 t0 = time.perf_counter()
                 train_losses = []
                 if train_data is not None:
@@ -376,10 +399,24 @@ class Trainer:
                             {k: ev[k] for k in ("total_loss", "conf_loss", "loc_loss", "n_valid")}
                         )
                         if compute_val_metrics:
+                            # a patch eval hands back the patch-frame GT of
+                            # its patch-frame detections
+                            gt = {k: ev.get(f"gt_{k}", host_val[k][ids])
+                                  for k in ("boxes", "labels", "box_mask")}
                             self._detection_metrics(
-                                ev["detections"], host_val["boxes"][ids], host_val["labels"][ids],
-                                host_val["box_mask"][ids] & valid[:, None], valid, "val", accum,
+                                ev["detections"], gt["boxes"], gt["labels"],
+                                _host(gt["box_mask"]) & valid[:, None], valid, "val", accum,
                             )
+                            if sw_val_on:
+                                rows = ids[valid]
+                                det = sw_val_detect(val_state,
+                                                    val_data["image"][torch.from_numpy(rows)
+                                                                      .to(device)])
+                                self._detection_metrics(
+                                    det, host_val["boxes"][rows], host_val["labels"][rows],
+                                    host_val["box_mask"][rows], np.ones(len(rows), bool),
+                                    "val_full", accum,
+                                )
                 else:
                     for batch in datamodule.val_batches():
                         batch = array_batch(batch)
@@ -388,10 +425,20 @@ class Trainer:
                             {k: ev[k] for k in ("total_loss", "conf_loss", "loc_loss", "n_valid")}
                         )
                         if compute_val_metrics:
+                            gt = {k: ev.get(f"gt_{k}", batch[k])
+                                  for k in ("boxes", "labels", "box_mask")}
                             self._detection_metrics(
-                                ev["detections"], batch["boxes"], batch["labels"],
-                                batch["box_mask"], batch["batch_mask"], "val", accum,
+                                ev["detections"], gt["boxes"], gt["labels"], gt["box_mask"],
+                                batch["batch_mask"], "val", accum,
                             )
+                            keep = batch["batch_mask"].astype(bool)
+                            if sw_val_on and keep.any():
+                                det = sw_val_detect(val_state, batch["image"][keep])
+                                self._detection_metrics(
+                                    det, batch["boxes"][keep], batch["labels"][keep],
+                                    batch["box_mask"][keep], np.ones(int(keep.sum()), bool),
+                                    "val_full", accum,
+                                )
 
                 # one read of the epoch's train and val losses
                 train_losses = [{k: float(v) for k, v in m.items()} for m in train_losses]
@@ -420,6 +467,9 @@ class Trainer:
                 if compute_val_metrics and accum["val"]:
                     self._finalize_detection_metrics(accum, "val", config, epoch_logs,
                                                      "validation")
+                if compute_val_metrics and accum["val_full"]:
+                    self._finalize_detection_metrics(accum, "val_full", config, epoch_logs,
+                                                     "validation_full")
                 epoch_times.append({"epoch": epoch, "steps": steps_run, "train_s": train_s,
                                     "val_s": time.perf_counter() - t_val,
                                     "train_losses": [m["total_loss"] for m in train_losses]})
@@ -433,6 +483,9 @@ class Trainer:
                            f"val_loss={avg_val:.4f} ({time.perf_counter() - t0:.1f}s)")
                     if "mAP/validation_IoU_0.1" in epoch_logs:
                         msg += f" mAP@0.1={epoch_logs['mAP/validation_IoU_0.1']:.3f}"
+                    if "mAP/validation_full_IoU_0.1" in epoch_logs:
+                        msg += (" full-vol mAP@0.1="
+                                f"{epoch_logs['mAP/validation_full_IoU_0.1']:.3f}")
                     print(msg, flush=True)
 
                 # ---- checkpoint + early stopping ----

@@ -10,10 +10,13 @@ dtypes, and autograd's gradients reach the masters in float32.
 
 A batch is a dict of arrays or tensors: ``image`` (B, D, H, W, C),
 ``boxes`` (B, M, 6) corner form, ``labels`` (B, M), ``box_mask`` (B, M)
-and optionally ``batch_mask`` (B,).
+and optionally ``batch_mask`` (B,). With ``patch_training`` the images are
+full-resolution volumes and the steps crop ``config.input_size`` patches
+from them on the device (``data/patches.py``).
 
-Not ported yet (ROADMAP): ``patch_training`` (needs ``data/patches.py``),
-the whole-epoch scan and the sharded steps.
+Not ported yet: the sharded steps (ROADMAP item 17). The JAX package's
+whole-epoch scan is a TPU dispatch workaround that gives the same numbers
+as stepping; the port steps.
 """
 
 from __future__ import annotations
@@ -24,6 +27,12 @@ import torch
 from torch.func import functional_call
 
 from ..data.augment import AugmentConfig, augment_batch
+from ..data.patches import (
+    boxes_to_patch,
+    crop_patches,
+    deterministic_patch_starts,
+    sample_patch_starts,
+)
 from ..models.losses import multibox_loss_from_config
 from ..models.ssd3d import SSD3D, SSD3DConfig
 from ..ops.nms import detect_objects
@@ -49,48 +58,68 @@ def _cast(model: SSD3D, params: dict) -> dict:
     return {n: p.to(dtypes[n]) for n, p in params.items()}
 
 
+def eval_forward(model: SSD3D, state: TrainState, images: torch.Tensor):
+    """(locs, scores) of ``model`` in eval mode on the state's weights and BN
+    statistics; the caller decides whether autograd records it."""
+    model.eval()
+    return functional_call(model, (_cast(model, state.params), state.batch_stats), (images,))
+
+
 def _detect(config: SSD3DConfig, locs, scores, priors):
     return detect_objects(locs, scores, priors, n_classes=config.n_classes,
                           min_score=config.min_score, max_overlap=config.max_overlap,
                           top_k=config.top_k)
 
 
-def _check_patch_training(patch_training: bool) -> None:
-    if patch_training:
-        raise NotImplementedError(
-            "patch_training needs data/patches.py, which is not ported yet (ROADMAP item 12)")
+def _crop(images, boxes, box_mask, starts, patch):
+    """The patches at ``starts`` and the ground truth re-mapped into them."""
+    full = tuple(images.shape[1:4])
+    boxes, box_mask = boxes_to_patch(boxes, box_mask, starts, full, patch)
+    return crop_patches(images, starts, patch), boxes, box_mask
+
+
+def _needs_dropout(config: SSD3DConfig) -> bool:
+    return "convnet" in config.base_network_config and config.convnet_dropout > 0.0
 
 
 def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
                     augment: AugmentConfig | None = None, hard_negative_mining: bool = False,
                     skip_nonfinite: bool = True, with_detections: bool = False,
                     return_grads: bool = False, grad_accum: int = 1,
-                    patch_training: bool = False):
+                    patch_training: bool = False, patch_pos_fraction: float = 0.7):
     """Returns fn(state, batch, generator=None) -> (new state, metrics).
 
-    ``generator`` (a ``torch.Generator`` on the state's device) draws the
-    augmentation; it is required unless ``augment`` is the identity. After
-    augmentation boxes are clipped to [0, 1] and degenerate ones masked.
+    ``generator`` (a ``torch.Generator`` on the state's device) draws, in
+    this order, the patch starts (``patch_training``), the augmentation and
+    the ConvNet's dropout masks (one set per micro-batch); it is required
+    when any of them is on. With ``patch_training`` each sample is cropped
+    to ``config.input_size`` at a lesion-biased start
+    (``patch_pos_fraction``, ``data/patches.py``) before augmentation, and
+    its boxes re-mapped into the patch. After augmentation boxes are
+    clipped to [0, 1] and degenerate ones masked.
 
     With ``skip_nonfinite`` a non-finite loss keeps the old params,
     optimizer state, BN statistics and EMA (a select on the card, no host
     sync) while ``step`` and ``nonfinite_streak`` advance. ``grad_accum``
     splits the batch into micro-batches whose BN statistics chain and whose
     gradients are averaged before one update. ``with_detections`` adds the
-    detections of the training forward (K1 on the card) and the augmented
-    ground truth; ``return_grads`` adds the gradients by parameter name.
+    detections of the training forward (K1 on the card) and the ground
+    truth it saw (patch frame, augmented); ``return_grads`` adds the
+    gradients by parameter name.
 
     Metrics: total_loss, conf_loss, loc_loss, n_positives (valid boxes after
     augmentation, the JAX package's metric), nonfinite, nonfinite_streak and
     grad_norm (over every parameter).
     """
-    _check_patch_training(patch_training)
     augment = augment or AugmentConfig()
     priors_on = _priors_by_device(priors_center)
     grad_accum = max(1, int(grad_accum))
+    patch = tuple(config.input_size)
+    random = patch_training or not augment.identity or _needs_dropout(config)
 
-    def loss_fn(leaves: dict, stats: dict, mb: dict, priors: torch.Tensor):
-        locs, scores = functional_call(model, (_cast(model, leaves), stats), (mb["image"],))
+    def loss_fn(leaves: dict, stats: dict, mb: dict, priors: torch.Tensor, generator):
+        locs, scores = functional_call(model, (_cast(model, leaves), stats), (mb["image"],),
+                                       {"generator": generator})
         conf_loss, loc_loss = multibox_loss_from_config(
             config, locs, scores, mb["boxes"], mb["labels"], mb["box_mask"],
             priors, batch_mask=mb["batch_mask"], hard_negative_mining=hard_negative_mining,
@@ -102,9 +131,14 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         priors = priors_on(device)
         batch = _batch_on(batch, device)
         images, boxes, box_mask = batch["image"], batch["boxes"], batch["box_mask"]
+        if random and generator is None:
+            raise ValueError("make_train_step: patch training, augmentation and dropout "
+                             "need a generator")
+        if patch_training:
+            starts = sample_patch_starts(generator, tuple(images.shape[1:4]), patch, boxes,
+                                         box_mask, patch_pos_fraction)
+            images, boxes, box_mask = _crop(images, boxes, box_mask, starts, patch)
         if not augment.identity:
-            if generator is None:
-                raise ValueError("make_train_step: augmentation needs a generator")
             images, boxes = augment_batch(generator, images, boxes, augment)
             boxes = torch.clamp(boxes, 0.0, 1.0)
             box_mask = box_mask & ~(boxes[..., 3:] <= boxes[..., :3]).any(dim=-1)
@@ -123,7 +157,7 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         gsum, totals, confs, locs_l, locs_out, scores_out = None, [], [], [], [], []
         for i in range(grad_accum):
             mb = {k: v[i * m:(i + 1) * m] for k, v in full.items()}
-            total, conf, loc, locs, scores = loss_fn(leaves, stats, mb, priors)
+            total, conf, loc, locs, scores = loss_fn(leaves, stats, mb, priors, generator)
             g = torch.autograd.grad(total, [leaves[n] for n in names], allow_unused=True)
             g = [torch.zeros_like(leaves[n]) if gi is None else gi for n, gi in zip(names, g)]
             gsum = g if gsum is None else torch._foreach_add(gsum, g)
@@ -217,7 +251,9 @@ def make_gathered_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
     """Train step over a dataset held on the device: fn(state, data, idx, generator=None).
 
     ``data`` holds image / boxes / labels / box_mask rows; ``idx`` (B,)
-    selects the batch on the device. make_train_step's options pass through.
+    selects the batch on the device. make_train_step's options pass through;
+    with ``patch_training`` the rows are full volumes, cropped afresh each
+    step.
     """
     body = make_train_step(config, model, priors_center, augment, **kwargs)
 
@@ -238,21 +274,28 @@ def make_eval_step(config: SSD3DConfig, model: SSD3D, priors_center,
     The model runs in eval mode on the running BN statistics, so the
     config's ``use_pallas`` / ``use_pallas_tail`` send its layers to K2 / K3
     on the card. ``hard_negative_mining`` should match the training flag.
-    ``n_valid`` counts the batch's real rows.
+    ``n_valid`` counts the batch's real rows. ``patch_training`` scores a
+    deterministic crop of each full volume, centred on its boxes
+    (``data/patches.py``), so the monitored loss repeats; the detections are
+    then in the patch frame, and ``gt_boxes`` / ``gt_labels`` /
+    ``gt_box_mask`` hand back the ground truth re-mapped into it.
     """
-    _check_patch_training(patch_training)
     priors_on = _priors_by_device(priors_center)
+    patch = tuple(config.input_size)
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict) -> dict:
         device = state.device
         priors = priors_on(device)
         batch = _batch_on(batch, device)
-        model.eval()
-        locs, scores = functional_call(model, (_cast(model, state.params), state.batch_stats),
-                                       (batch["image"],))
+        images, boxes, box_mask = batch["image"], batch["boxes"], batch["box_mask"]
+        if patch_training:
+            starts = deterministic_patch_starts(tuple(images.shape[1:4]), patch, boxes,
+                                                box_mask)
+            images, boxes, box_mask = _crop(images, boxes, box_mask, starts, patch)
+        locs, scores = eval_forward(model, state, images)
         conf_loss, loc_loss = multibox_loss_from_config(
-            config, locs, scores, batch["boxes"], batch["labels"], batch["box_mask"],
+            config, locs, scores, boxes, batch["labels"], box_mask,
             priors, batch_mask=batch["batch_mask"], hard_negative_mining=hard_negative_mining,
         )
         out = {
@@ -263,6 +306,10 @@ def make_eval_step(config: SSD3DConfig, model: SSD3D, priors_center,
         }
         if with_detections:
             out["detections"] = _detect(config, locs, scores, priors)
+            if patch_training:
+                out["gt_boxes"] = boxes
+                out["gt_labels"] = batch["labels"]
+                out["gt_box_mask"] = box_mask
         return out
 
     return step
@@ -294,9 +341,7 @@ def make_predict_step(config: SSD3DConfig, model: SSD3D, priors_center,
     @torch.no_grad()
     def step(state: TrainState, images) -> dict:
         device = state.device
-        model.eval()
-        locs, scores = functional_call(model, (_cast(model, state.params), state.batch_stats),
-                                       (torch.as_tensor(images, device=device),))
+        locs, scores = eval_forward(model, state, torch.as_tensor(images, device=device))
         return detect_objects(
             locs, scores, priors_on(device), n_classes=config.n_classes,
             min_score=config.min_score if min_score is None else min_score,

@@ -11,12 +11,17 @@
   layer_<i>/dw_conv/kernel (3,3,3,1,C)  -> base.features.<i>.conv1.weight (C,1,3,3,3)
   layer_<i>/pw_conv/kernel (1,1,1,I,O)  -> base.features.<i>.conv2.weight (O,I,1,1,1)
   layer_<i>/{dw_bn,pw_bn}               -> base.features.<i>.{bn1,bn2}.*
+  ConvNet: layer_<i>/conv/{kernel,bias} -> base.features.<i>.conv.{weight,bias}
+           layer_<i>/prelu_alpha (1,)   -> base.features.<i>.adn.A.weight (1,)
   heads/{loc,cls}_<layer>               -> pred_convs.{loc,cl}_convs.<j>, ascending layer
   rescale_factors (C,)                  -> rescale_factors (1,C,1,1,1)
 
 BN scale/bias become weight/bias and batch_stats mean/var become
-running_mean/running_var. :func:`from_jax_params` maps a tree shaped like
-``params`` alone, such as a gradient tree, onto the parameter names.
+running_mean/running_var. The ConvNet's blocks follow MONAI's
+``Convolution`` (``conv``, then ``adn`` whose PReLU is ``A``); its
+max-pool layers hold no variables, and it has no ``batch_stats``.
+:func:`from_jax_params` maps a tree shaped like ``params`` alone, such as a
+gradient tree, onto the parameter names.
 """
 
 from __future__ import annotations
@@ -35,14 +40,17 @@ def _conv_weight(kernel) -> torch.Tensor:
 
 
 def _layers(backbone: dict):
-    i = 0
-    while f"layer_{i}" in backbone:
+    """(index, variables) of every backbone layer that holds some, in order
+    (a ConvNet's max-pool layers hold none)."""
+    indices = sorted(int(k.split("_")[1]) for k in backbone if k.startswith("layer_"))
+    for i in indices:
         yield i, backbone[f"layer_{i}"]
-        i += 1
 
 
 def _bn_children(layer: dict):
     """(port child, JAX child) of each BN of a backbone layer."""
+    if "prelu_alpha" in layer:  # ConvNet block: no BN
+        return ()
     if "conv" in layer:  # stem ConvBNReLU
         return (("1", "bn"),)
     return (("bn1", "dw_bn"), ("bn2", "pw_bn"))
@@ -53,7 +61,11 @@ def from_jax_params(params: dict, config) -> dict:
     out: dict = {}
     for i, layer in _layers(params["backbone"]):
         prefix = f"base.features.{i}"
-        if "conv" in layer:
+        if "prelu_alpha" in layer:
+            out[f"{prefix}.conv.weight"] = _conv_weight(layer["conv"]["kernel"])
+            out[f"{prefix}.conv.bias"] = _tensor(layer["conv"]["bias"])
+            out[f"{prefix}.adn.A.weight"] = _tensor(layer["prelu_alpha"])
+        elif "conv" in layer:
             out[f"{prefix}.0.weight"] = _conv_weight(layer["conv"]["kernel"])
         else:
             out[f"{prefix}.conv1.weight"] = _conv_weight(layer["dw_conv"]["kernel"])
@@ -75,7 +87,7 @@ def from_jax_params(params: dict, config) -> dict:
 def from_jax_batch_stats(params: dict, batch_stats: dict) -> dict:
     """JAX ``batch_stats`` -> {port running_mean / running_var name: tensor}."""
     out: dict = {}
-    stats = batch_stats["backbone"]
+    stats = batch_stats.get("backbone", {})
     for i, layer in _layers(params["backbone"]):
         for ours, theirs in _bn_children(layer):
             prefix = f"base.features.{i}.{ours}"

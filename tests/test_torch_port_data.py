@@ -300,8 +300,19 @@ def test_synthetic_batches_equal_jax(synthetic_root):
 
 
 def test_synthetic_device_boxes_is_not_ported(synthetic_root):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        datasets.SyntheticDataModule(synthetic_root, n_classes=2, device_boxes=True)
+    """device_boxes=True now works: connected components on the device (here
+    the CPU) give every sample the host path's boxes and labels, as sets,
+    for both classes (tests/test_torch_port_connected_components.py holds
+    the labelling against the JAX package's)."""
+    host = datasets.SyntheticDataModule(synthetic_root, n_classes=2, max_objects=6)
+    dev = datasets.SyntheticDataModule(synthetic_root, n_classes=2, max_objects=6,
+                                       device_boxes=True, device="cpu")
+    for s in host.subjects_list:
+        h, d = host.get_sample(s), dev.get_sample(s)
+        order_h, order_d = np.lexsort(h["boxes"].T), np.lexsort(d["boxes"].T)
+        np.testing.assert_array_equal(d["labels"][order_d], h["labels"][order_h])
+        np.testing.assert_allclose(d["boxes"][order_d], h["boxes"][order_h], rtol=0, atol=1e-6)
+    assert sum(len(host.get_sample(s)["labels"]) for s in host.subjects_list) > 13
 
 
 @pytest.mark.parametrize("fold", [None, 1])

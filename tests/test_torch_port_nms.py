@@ -10,6 +10,7 @@ wide walk with 3, 2, 1 or 0 staged words past it) checks its design here,
 where the kernel itself cannot run, up to K = 3942, the 96^3 headline's.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from mslesions3d_tpu_torch.ops.nms import (
     detections_to_lists,
     greedy_nms,
     greedy_nms_sequential,
+    top_k_stable,
 )
 
 
@@ -354,3 +356,34 @@ def test_detections_to_lists_placeholder():
     np.testing.assert_array_equal(b[0], [[0, 0, 0, 1, 1, 1]])
     assert l[0].tolist() == [0] and s[0].tolist() == [0.0]
     assert b[1].shape == (2, 6) and l[1].tolist() == [1, 1]
+
+
+@pytest.mark.parametrize("rows,cols,k,levels", [(3, 40, 10, 4), (2, 1000, 1000, 7), (5, 146, 70, 2)])
+def test_top_k_stable_breaks_ties_as_lax_top_k(rows, cols, k, levels):
+    """Scores drawn from a few values, so most are tied: values and indices
+    equal ``lax.top_k``'s (ties to the lower index)."""
+    scores = np.random.default_rng(rows).integers(0, levels, (rows, cols)).astype(np.float32) / 8
+    values, idx = top_k_stable(torch.from_numpy(scores), k)
+    ref_values, ref_idx = jax.lax.top_k(jnp.asarray(scores), k)
+    np.testing.assert_array_equal(values.numpy(), np.asarray(ref_values))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+
+
+@pytest.mark.parametrize("top_k", [100, 7])
+def test_detect_objects_with_tied_scores_matches_jax(top_k):
+    """Class logits drawn from three values, so most candidates tie (as
+    priors whose features are all zero do, on a scan's empty background):
+    the selections break ties as the JAX package's ``lax.top_k`` does, so
+    the detections equal JAX's in order too (boxes and scores within 1e-6,
+    as above)."""
+    locs, scores, priors = _detect_inputs(seed=1)
+    scores = np.random.default_rng(1).integers(0, 3, scores.shape).astype(np.float32)
+    kw = dict(n_classes=scores.shape[-1], min_score=0.3, max_overlap=0.5, top_k=top_k)
+    ref = jax_detect_objects(jnp.asarray(locs), jnp.asarray(scores), jnp.asarray(priors), **kw)
+    ours = detect_objects(torch.from_numpy(locs), torch.from_numpy(scores),
+                          torch.from_numpy(priors), **kw)
+    assert int(np.asarray(ref["count"]).min()) > 0
+    np.testing.assert_array_equal(ours["count"].numpy(), np.asarray(ref["count"]))
+    np.testing.assert_array_equal(ours["labels"].numpy(), np.asarray(ref["labels"]))
+    np.testing.assert_allclose(ours["scores"].numpy(), np.asarray(ref["scores"]), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ours["boxes"].numpy(), np.asarray(ref["boxes"]), rtol=1e-6, atol=1e-6)

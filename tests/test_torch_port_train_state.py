@@ -288,15 +288,22 @@ def test_train_state_wants_a_card_unless_asked(monkeypatch):
 
 
 def test_options_left_out_raise():
+    """The options this test once refused now run: ``remat`` in training
+    gives the plain forward's outputs (tests/test_torch_port_remat.py holds
+    its gradients), and the patch train and eval steps crop full volumes
+    (tests/test_torch_port_patches.py holds them against JAX)."""
     cfg = SSD3DConfig.create(**SMALL, remat=True)
-    model = SSD3D(cfg)
-    x = torch.zeros((1, 16, 16, 16, 1))
-    with torch.no_grad():
-        model.eval()(x)  # no effect in eval
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train()(x)
+    model, plain = SSD3D(cfg), SSD3D(SSD3DConfig.create(**SMALL))
+    x = torch.randn((2, 16, 16, 16, 1), generator=torch.Generator().manual_seed(0))
+    for a, b in zip(model.train()(x), plain.train()(x)):
+        assert torch.equal(a, b) and a.requires_grad
     priors = model_priors(cfg)
-    with pytest.raises(NotImplementedError, match="patches"):
-        make_train_step(cfg, model, priors, patch_training=True)
-    with pytest.raises(NotImplementedError, match="patches"):
-        make_eval_step(cfg, model, priors, patch_training=True)
+    state = create_train_state(cfg, device="cpu")
+    full = {"image": np.random.default_rng(0).normal(size=(2, 20, 24, 18, 1)).astype(np.float32),
+            "boxes": np.array([[[0.2, 0.2, 0.2, 0.6, 0.5, 0.6]]] * 2, np.float32),
+            "labels": np.ones((2, 1), np.int32), "box_mask": np.ones((2, 1), bool)}
+    new, m = make_train_step(cfg, model, priors, patch_training=True)(
+        state, full, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(m["total_loss"])) and int(new.step) == 1
+    ev = make_eval_step(cfg, model, priors, patch_training=True)(new, full)
+    assert np.isfinite(float(ev["total_loss"])) and ev["gt_box_mask"].all()

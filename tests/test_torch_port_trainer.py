@@ -19,6 +19,12 @@ test), so both train on the same arrays. Held:
 * the history keys, the mAP keys and the checkpoint directories: the same
   epochs, ``last``, and the names' losses within their 4 printed decimals.
 
+Patch training: both trainers on 32x32x16 volumes with 16^3 patches, the
+random crop set to the deterministic one on both sides (the part the
+frameworks draw differently): training and validation losses within rtol
+1e-4, and each epoch's full-volume (sliding-window) and crop mAP within
+1e-6; then the port's own sampler, logging ``mAP/validation_full_*``.
+
 The rest runs the port alone: checkpoint round trip, top-k with ``last``,
 a run stopped after epoch 1 and resumed equals the run straight through
 (with augmentation: each epoch's generator is seeded seed + epoch), the
@@ -38,6 +44,7 @@ from test_torch_port_train_step import assert_params_close
 
 from mslesions3d_tpu.cli import train as jax_cli
 from mslesions3d_tpu.data import datasets as jax_datasets
+from mslesions3d_tpu.data import patches as jax_patches
 from mslesions3d_tpu.data.generate import generate_dataset
 from mslesions3d_tpu.models import SSD3D as JaxSSD3D
 from mslesions3d_tpu.models import SSD3DConfig as JaxConfig
@@ -46,6 +53,7 @@ from mslesions3d_tpu.train import TrainerConfig as JaxTrainerConfig
 from mslesions3d_tpu.train.checkpoints import save_checkpoint as jax_save_checkpoint
 from mslesions3d_tpu.train.state import create_train_state as jax_create_train_state
 from mslesions3d_tpu_torch.cli import train as cli
+from mslesions3d_tpu_torch.data import patches as port_patches
 from mslesions3d_tpu_torch.data.augment import AugmentConfig
 from mslesions3d_tpu_torch.data.datasets import SyntheticDataModule
 from mslesions3d_tpu_torch.models.ssd3d import SSD3DConfig
@@ -163,6 +171,89 @@ def test_fit_history_and_checkpoints_match_jax(fitted):
     assert SSD3DConfig.from_json_dict(meta["config"]) == fitted["cfg"]
 
 
+# ---------------------------------------------------------------- patch training
+# power-of-two sides: a box corner k / side times the side is exact in
+# float32, so the JAX step's fused multiply-add in the patch remap (one
+# rounding, where the port rounds twice) gives the same boxes; on other
+# sides the two differ by an ulp, which can flip a tie in prior matching
+# on these grid-aligned synthetic boxes
+PATCH_VOLUME = (32, 32, 16)
+
+
+@pytest.fixture(scope="module")
+def patch_fitted(tmp_path_factory):
+    """Both trainers with ``patch_training`` on 32x32x16 volumes (16^3
+    patches), resumed from the same epoch-0 state. The random crop is the
+    one part the two frameworks draw differently, so on both sides the
+    train step's sampler is set to the deterministic crop (monkeypatched,
+    nothing in either package changes); the rest (the train steps on the
+    crops, the validation loss on the deterministic crops and the
+    full-volume validation through the sliding window) is deterministic."""
+    out = tmp_path_factory.mktemp("patch_fit")
+    root = out / "data"
+    generate_dataset(root, num_images=12, n_classes=1, image_size=PATCH_VOLUME,
+                     object_size=(4, 8), num_objects=(1, 3), seed=2)
+    jcfg, cfg = JaxConfig.create(**KW), SSD3DConfig.create(**KW)
+    _, init_rng = jax.random.split(jax.random.PRNGKey(SEED))
+    jstate = jax_create_train_state(JaxSSD3D(jcfg), jcfg, init_rng)
+    jax_save_checkpoint(out / "jax_init", jstate, jcfg, extra={"epoch": 0})
+    params, stats = jax.device_get(jstate.params), jax.device_get(jstate.batch_stats)
+    state = create_train_state(cfg, device="cpu",
+                               state_dict=from_jax_variables(params, stats, cfg))
+    save_checkpoint(out / "port_init", state, cfg, extra={"epoch": 0})
+    trainer = dict(TRAINER, patch_training=True)
+
+    with pytest.MonkeyPatch.context() as mp:
+        def no_native(*args, **kwargs):
+            raise OSError("native loader off for the comparison")
+
+        mp.setattr("mslesions3d_tpu.native.load_nifti_fast", no_native)
+        mp.setattr("mslesions3d_tpu.data.patches.sample_patch_starts",
+                   lambda rng, vol, patch, boxes, mask, pos: jax_patches
+                   .deterministic_patch_starts(vol, patch, boxes, mask))
+        mp.setattr("mslesions3d_tpu_torch.train.steps.sample_patch_starts",
+                   lambda gen, vol, patch, boxes, mask, pos: port_patches
+                   .deterministic_patch_starts(vol, patch, boxes, mask))
+        jdm = jax_datasets.SyntheticDataModule(root, n_classes=1, batch_size=8, max_objects=6)
+        jdm.setup("fit")
+        jax_state, jax_result = JaxTrainer(JaxTrainerConfig(
+            logdir=str(out), experiment_name="jax", **trainer)).fit(
+                jcfg, jdm, resume=str(out / "jax_init"))
+        port_state, port_result = Trainer(TrainerConfig(
+            logdir=str(out), experiment_name="port", device="cpu", **trainer)).fit(
+                cfg, _port_module(root), resume=str(out / "port_init"))
+    return dict(out=out, root=root, jax_result=jax_result, port_result=port_result)
+
+
+def test_patch_fit_matches_jax(patch_fitted):
+    out = patch_fitted["out"]
+    for key, n in (("total_loss/training", 3), ("avg_val_loss", 3)):
+        ours, ref = _records(out / "port", key), _records(out / "jax", key)
+        assert len(ours) == len(ref) == n
+        np.testing.assert_allclose([v for _, v in ours], [v for _, v in ref], rtol=1e-4,
+                                   err_msg=key)
+    ours, ref = patch_fitted["port_result"]["history"], patch_fitted["jax_result"]["history"]
+    assert [sorted(h) for h in ours] == [sorted(h) for h in ref]
+    for key in ("mAP/validation_full_IoU_0.1", "mAP/validation_full_IoU_0.5",
+                "recall/validation_full_IoU_0.1", "mAP/validation_IoU_0.1"):
+        np.testing.assert_allclose([h[key] for h in ours], [h[key] for h in ref], atol=1e-6,
+                                   err_msg=key)
+
+
+def test_patch_fit_draws_crops_and_scores_whole_volumes(patch_fitted, tmp_path, capsys):
+    """With its own sampler the port's patch training runs, and its metric
+    epochs log the full-volume mAP of the sliding window."""
+    state, result = Trainer(TrainerConfig(
+        logdir=str(tmp_path), experiment_name="patch", device="cpu",
+        **dict(TRAINER, max_epochs=2, patch_training=True, patch_pos_fraction=1.0,
+               verbose=True))).fit(
+            SSD3DConfig.create(**KW), _port_module(patch_fitted["root"]),
+            augment=AugmentConfig.from_names(["flip"]))
+    assert int(state.step) == 2
+    assert all("mAP/validation_full_IoU_0.1" in h for h in result["history"])
+    assert "[sliding_window] 9 patches of (16, 16, 16) over (32, 32, 16)" in capsys.readouterr().out
+
+
 # ---------------------------------------------------------------- port alone
 def _state(ema=0.5):
     cfg = SSD3DConfig.create(**dict(KW, ema_decay=ema))
@@ -244,11 +335,10 @@ def test_streaming_path_trains(dataset_root, tmp_path):
     assert "mAP/validation_IoU_0.1" in result["history"][1]
 
 
-@pytest.mark.parametrize("option", [dict(data_parallel=True), dict(spatial_shards=2),
-                                    dict(patch_training=True)])
+@pytest.mark.parametrize("option", [dict(data_parallel=True), dict(spatial_shards=2)])
 def test_options_not_ported_raise(option, tmp_path):
     tcfg = TrainerConfig(logdir=str(tmp_path), device="cpu", **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[79]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         Trainer(tcfg).fit(SSD3DConfig.create(**KW), None)
 
 
