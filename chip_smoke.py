@@ -9,7 +9,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device: the card's name and power limit; TF32 off for convs and matmuls.
 2. build: nvcc builds every CUDA kernel of the served paths from ``csrc/``
-   (K1 NMS, K2 fused depthwise, K3 fused tail), all three at once, and
+   (K1 NMS, K2 fused depthwise, K3 fused tail, Q1 int8 conv), all at once, and
    ptxas's register, shared-memory and spill lines are printed; the tensor-
    core instructions (HMMA) in the built K3 library's SASS are counted per
    kernel function (cuobjdump -sass): the bf16 product must reach them.
@@ -118,6 +118,28 @@ Phases (any failure exits non-zero and prints no result line):
    the last below the first) and an eval step whose detections (K1) equal
    the plain NMS's; ``materialize`` with ``device_boxes`` (connected
    components on the card) gives the host path's boxes.
+4f. deployment, each run with the launch counts set to 0 just before it and
+   read just after. The headline model with its BN calibrated is exported
+   (``serving.export_detector``, ``torch.export`` with K1-K3 as registered
+   ops) at batch 1, 8 and 32, on the default path and with both flags,
+   saved and loaded in a fresh ``ServingDetector``: requests of 1, 3 and 8
+   volumes give the live ``Detector.predict``'s detections exactly, a
+   bundle call launches K1 once (and K2, K3 once with both flags), and the
+   bundle's size, export and load seconds and volumes/s against the live
+   Detector (live, bundle, bundle, live) are logged. int8: the model
+   quantized on the card from 2 seeded calibration volumes; Q1 is held
+   against its plain version on every conv of one forward (0 int32
+   mismatches, the epilogue bit for bit), timed by conv kind beside its
+   bound, its plain version, a float64 F.conv3d of the same integers and
+   ``torch._int_mm`` on the pointwise shapes; the int8 bundle (batch 8 and
+   32) equals the live int8 program, launches K1 once and Q1 once a conv,
+   and is set beside the bf16 bundle (relative error of locs and scores,
+   detections matched at IoU > 0.5, volumes/s). The sliding-window bundle
+   at config #3 (V = 1) equals the live sliding window and launches K1
+   twice a call. ``cli.serve.make_http_server`` on the default bundle at
+   batch 1 and 8 under 8 client threads x 4 POSTs of one volume: every
+   response equals a direct predict of its volume, fewer device calls than
+   requests, p50/p95 latency and volumes/s.
 5. times on the card: K1 (at K = 1000, and at K = 3942 for N = 8 and 32;
    on the full-volume path: a chunk's per-patch NMS at N = 32, K = 500 and
    the stitch at V = 1 and 4, K = 1000, and at top_k 395, K = 3950),
@@ -130,8 +152,10 @@ Phases (any failure exits non-zero and prints no result line):
    by kernel function (K1's mask and walk launches, K3's kernel) and K3's
    by block (chain prefixes at batch 8), the detect path
    for the four flag settings, end-to-end volumes/s at batch 1, 8 and 32 on
-   the default and the fused path, and torch.profiler breakdowns of the
-   device time by kernel with the device's idle share.
+   the default and the fused path, the host time the registered ops add a
+   call at batch 1 (K1-K3: the wrapper against the launch function alone),
+   and torch.profiler breakdowns of the device time by kernel with the
+   device's idle share.
 6. one JSON line listing every ported kernel, then the card line, then the
    result line ``{"ok": true, "device": {...}}``.
 """
@@ -139,12 +163,16 @@ Phases (any failure exits non-zero and prints no result line):
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
+import math
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack, contextmanager
 from functools import partial
@@ -161,6 +189,7 @@ from mslesions3d_tpu_torch.cli import import_torch as import_cli
 from mslesions3d_tpu_torch.cli import model_insight as insight_cli
 from mslesions3d_tpu_torch.cli import plots, recipe
 from mslesions3d_tpu_torch.cli import predict as predict_cli
+from mslesions3d_tpu_torch.cli.serve import make_http_server
 from mslesions3d_tpu_torch.cli import train as train_cli
 from mslesions3d_tpu_torch.cli import tune_lr as tune_lr_cli
 from mslesions3d_tpu_torch.data.augment import AugmentConfig
@@ -174,20 +203,36 @@ from mslesions3d_tpu_torch.kernels.depthwise import (
     fused_depthwise_bn_relu_cuda,
     plan_depthwise,
 )
+from mslesions3d_tpu_torch import kernels, quant
 from mslesions3d_tpu_torch.kernels.nms import greedy_nms, greedy_nms_cuda, plan_nms
+from mslesions3d_tpu_torch.kernels.qconv import (
+    qconv_cuda,
+    qconv_epilogue,
+    qconv_s32,
+    qconv_s32_cuda,
+)
 from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, plan_tail, tail_reference
 from mslesions3d_tpu_torch.models.losses import multibox_loss_from_config
 from mslesions3d_tpu_torch.models.ssd3d import SSD3D, SSD3DConfig, model_priors
 from mslesions3d_tpu_torch import sliding_window
 from mslesions3d_tpu_torch.ops import nms as nms_ops
 from mslesions3d_tpu_torch.ops.metrics import calculate_mAP
+from mslesions3d_tpu_torch.ops.boxes import pairwise_iou
 from mslesions3d_tpu_torch.ops.nms import (
     detect_objects,
     detections_to_lists,
     nms_candidates,
     select_detections,
 )
-from mslesions3d_tpu_torch.serving import Detector, RequestBatcher
+from mslesions3d_tpu_torch.serving import (
+    DetectionProgram,
+    Detector,
+    RequestBatcher,
+    ServingDetector,
+    export_detector,
+    export_sliding_window_detector,
+    save_bundle,
+)
 from mslesions3d_tpu_torch.train import (
     create_train_state,
     eval_view,
@@ -219,7 +264,7 @@ FLAG_SETTINGS = {
     "use_pallas_tail": dict(use_pallas_tail=True),
     "both": dict(use_pallas=True, use_pallas_tail=True),
 }
-KERNELS = ("nms", "depthwise", "tail")
+KERNELS = ("nms", "depthwise", "tail", "qconv")
 # K1 past the warp walk: the 96^3 model's every prior (top_k >= 395), and the
 # first K past what one staged word of the wide walk holds (plan_nms)
 WIDE_K, FAR_K = 3942, 28545
@@ -660,10 +705,10 @@ def device_busy_ms(prof) -> tuple[float, float]:
     return busy / 1e3, (max(end for _, end in spans) - spans[0][0]) / 1e3
 
 
-def profile_calls(label, what, fn, card, calls=3) -> dict:
+def profile_calls(label, what, fn, card, calls=3, top=12) -> dict:
     """torch.profiler breakdown of ``calls`` calls of fn() (``what``) after a warm one:
-    the device's busy time and idle share, launches per call and the top
-    kernels by device time."""
+    the device's busy time and idle share, launches per call and the ``top``
+    kernels by device time (all of them, ms a call, in ``by_kernel``)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -683,11 +728,15 @@ def profile_calls(label, what, fn, card, calls=3) -> dict:
         f"end, idle share {idle:.3f}; host window {window_ms:.3f} ms; {launches} kernel launches "
         f"per call, {cudnn_dw} of them cuDNN's convolveNd kernels (grouped convs: forward, "
         f"dgrad, wgrad), {conv} with 'conv' in the name [{card}]")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3 / calls:9.3f} ms/call  {e.count // calls:4d} "
             f"launches/call  {e.key[:90]}")
+    by_kernel = {}
+    for e in rows:
+        by_kernel[kernel_name(e.key)] = (by_kernel.get(kernel_name(e.key), 0.0)
+                                         + e.self_device_time_total / 1e3 / calls)
     return {"busy_ms": busy_ms / calls, "idle_share": idle, "launches": launches,
-            "window_ms": window_ms / calls}
+            "window_ms": window_ms / calls, "by_kernel": by_kernel}
 
 
 def profile_detect(name, detector, x, card, calls=3):
@@ -1593,6 +1642,487 @@ def profile_training(train, card) -> None:
         profile_calls(f"train step, batch {b}", "train steps", one_step, card, calls)
 
 
+# ---------------------------------------------------------------- deployment
+# phase 4f: the headline bundles' batch sizes (the served batches), the int8
+# bundle's (bench.py's int8 cell), the HTTP bundle's, and the HTTP load
+BUNDLE_BATCHES = (1, 8, 32)
+INT8_BATCHES = (8, 32)
+# the sizes a coalesced call of up to 8 rows reaches: route() takes the
+# largest that fits, so 7 rows run as 4 + 2 + 1 (at (1, 8) as seven 1s)
+HTTP_BATCHES = (1, 2, 4, 8)
+HTTP_CLIENTS, HTTP_POSTS = 8, 4
+# the published dense int8 rate of the H100 SXM (tensor cores)
+PEAK_INT8_OPS = 1979e12
+
+
+def volumes_per_s(predict, images, iters: int) -> float:
+    """Host-clock volumes/s of predict(images), numpy in and out, after 2 warm calls."""
+    for _ in range(2):
+        predict(images)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        predict(images)
+    return images.shape[0] * iters / (time.perf_counter() - t0)
+
+
+@contextmanager
+def recorded_qconv():
+    """Records every Q1 launch made through ``quant.py``: its operands and
+    output, to be held against the plain version afterwards."""
+    calls = []
+
+    def record(q, wq, scale, bias, stride=1, groups=1, relu=False):
+        out = qconv_cuda(q, wq, scale, bias, stride, groups, relu)
+        calls.append((q, wq, scale, bias, stride, groups, relu, out))
+        return out
+
+    saved = quant.qconv_cuda
+    quant.qconv_cuda = record
+    try:
+        yield calls
+    finally:
+        quant.qconv_cuda = saved
+
+
+def qconv_kind(q, wq, stride, groups) -> str:
+    if groups > 1:
+        return f"depthwise s{max(stride)}"
+    if wq.shape[0] == 1:
+        return "pointwise"
+    return "stem" if q.shape[-1] == 1 else "head"
+
+
+def valid_taps(n: int, k: int, s: int) -> int:
+    """(output, tap) pairs of one axis whose input lies inside it (padding k // 2)."""
+    out = (n + 2 * (k // 2) - k) // s + 1
+    return sum(0 <= o * s - k // 2 + t < n for o in range(out) for t in range(k))
+
+
+def qconv_bound(q, wq, stride, groups):
+    """(bound ms, bound_by, int8 ops): the int8 multiply-adds this conv's
+    shapes need (2 operations each, padded taps not counted) at the int8
+    rate, against its bytes (q and the weights read once, scale and bias,
+    the float32 output written once) at the memory rate."""
+    b, *dims, cin = q.shape
+    k, cout = wq.shape[0], wq.shape[-1]
+    pairs = math.prod(valid_taps(n, k, s) for n, s in zip(dims, stride))
+    ops = 2 * b * pairs * (cin // groups) * cout
+    outputs = b * math.prod((n + 2 * (k // 2) - k) // s + 1 for n, s in zip(dims, stride)) * cout
+    nbytes = q.numel() + wq.numel() + 8 * cout + 4 * outputs
+    return (*bound({PEAK_INT8_OPS: ops}, nbytes), ops)
+
+
+def drive_deployment(card, counters, cal_state, tmp: Path) -> dict:
+    """Phase 4f: deployment. The headline bundles (default path and both
+    flags) against the live Detector, the int8 bundle with Q1 held against
+    its plain version on every conv of a forward, the sliding-window bundle
+    at config #3, and the HTTP server under concurrent clients."""
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "timing": {}}
+    config = SSD3DConfig.create(**HEADLINE)
+    rng = np.random.default_rng(1)
+    requests = [rng.standard_normal((n, *config.input_size, 1), dtype=np.float32)
+                for n in (1, 3, 8)]
+    bundles = {}
+
+    # 1. the headline bundles against the live Detector
+    for name in ("off", "both"):
+        cfg = SSD3DConfig.create(**HEADLINE, **FLAG_SETTINGS[name])
+        t0 = time.perf_counter()
+        exports, manifest = export_detector(cfg, cal_state, BUNDLE_BATCHES)
+        export_s = time.perf_counter() - t0
+        path = save_bundle(tmp / f"headline_{name}.mslx", exports, manifest)
+        t0 = time.perf_counter()
+        det = ServingDetector(path)
+        load_s = time.perf_counter() - t0
+        live = Detector(cfg, cal_state, batch_sizes=BUNDLE_BATCHES)
+        ops = {"msl::greedy_nms"} | ({"msl::fused_depthwise_bn_relu", "msl::fused_tail"}
+                                    if name == "both" else set())
+        check(set(manifest["custom_ops"]) == ops,
+              f"bundle [{name}] calls {manifest['custom_ops']}, not {sorted(ops)}")
+        counts = []
+        for req in requests:
+            want, got = live.predict(req), det.predict(req)
+            for key in want:
+                check(np.array_equal(got[key], want[key]),
+                      f"bundle [{name}]: {key} of a request of {req.shape[0]} volumes != the "
+                      "live Detector's")
+            counts += got["count"].tolist()
+        check(max(counts) > 0, f"bundle [{name}] found nothing")
+        x8 = torch.from_numpy(requests[2]).cuda().to(cfg.compute_dtype)
+        for c in counters:
+            c.launches = 0
+        det.detect(x8)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        want_launches = [1, 1, 1, 0] if name == "both" else [1, 0, 0, 0]
+        check(launches == want_launches, f"bundle [{name}]: launches (K1, K2, K3, Q1) a call "
+              f"{launches}, not {want_launches}")
+        out["launches"][name] = launches
+        rates = {}
+        for b in BUNDLE_BATCHES:
+            imgs = rng.standard_normal((b, *config.input_size, 1), dtype=np.float32)
+            iters = {1: 20, 8: 10, 32: 5}[b]
+            for who, fn in (("live", live.predict), ("bundle", det.predict),
+                            ("bundle", det.predict), ("live", live.predict)):
+                rates.setdefault(f"{who} batch {b}", []).append(volumes_per_s(fn, imgs, iters))
+        size_mb = path.stat().st_size / 1e6
+        out["timing"][name] = {"export_s": export_s, "load_s": load_s, "size_mb": size_mb,
+                               "volumes_per_s": rates}
+        log(f"bundle [{name}] at batches {BUNDLE_BATCHES}: {size_mb:.2f} MB, export "
+            f"{export_s:.1f} s, load {load_s:.2f} s; requests of 1, 3 and 8 volumes equal the "
+            f"live Detector's (all four outputs, {sum(counts)} detections); launches a call "
+            f"(K1, K2, K3, Q1) {launches}; volumes/s (live, bundle, bundle, live): " + "; ".join(
+                f"{k} {', '.join(f'{v:.1f}' for v in vs)}" for k, vs in rates.items())
+            + f" [{card}]")
+        bundles[name] = {"det": det, "live": live, "exports": exports, "manifest": manifest}
+
+    # 2. int8: quantized on the card from 2 seeded calibration volumes
+    calib = np.random.default_rng(0).normal(0, 1, (2, *config.input_size, 1)).astype(np.float32)
+    t0 = time.perf_counter()
+    qm = quant.quantize_ssd3d(config, cal_state, calib)
+    quantize_s = time.perf_counter() - t0
+    qmodel = quant.QuantizedSSD3D(qm).cuda()
+    n_convs = len(qm["layers"]) + 2 * len(qm["feature_layers"])
+    # the bundle's input dtype (the config's, bf16); the int8 forward runs in float32
+    x8 = torch.from_numpy(requests[2]).cuda().to(config.compute_dtype)
+    with torch.inference_mode(), recorded_qconv() as calls:
+        qconv_cuda.launches = 0
+        locs_q, scores_q = qmodel(x8)
+        torch.cuda.synchronize()
+        q1_forward = qconv_cuda.launches
+    check(q1_forward == len(calls) == n_convs,
+          f"the int8 forward launched Q1 {q1_forward} times for {n_convs} convs")
+    int_mismatches = epilogue_mismatches = 0
+    max_err = 0.0
+    by_kind = {}
+    with torch.inference_mode():
+        for q, wq, scale, bias, stride, groups, relu, y in calls:
+            acc = qconv_s32_cuda(q, wq, stride, groups)
+            plain = qconv_s32(q, wq, stride, groups)
+            int_mismatches += int((acc != plain).sum())
+            ref = qconv_epilogue(plain, scale, bias, relu)
+            epilogue_mismatches += int((y != ref).sum())
+            max_err = max(max_err, float((y - ref).abs().max()))
+            by_kind.setdefault(qconv_kind(q, wq, stride, groups), []).append(
+                (q, wq, scale, bias, stride, groups, relu))
+    log(f"int8 forward at batch 8 (quantized in {quantize_s:.1f} s): {q1_forward} Q1 launches "
+        f"({', '.join(f'{k} {len(v)}' for k, v in by_kind.items())}); against the plain "
+        f"version on every conv: {int_mismatches} int32 mismatches, {epilogue_mismatches} "
+        "epilogue mismatches (bit for bit)")
+    check(int_mismatches == 0 and epilogue_mismatches == 0, "Q1 disagrees with its plain version")
+    q1 = {"launches_forward": q1_forward, "int_mismatches": int_mismatches,
+          "epilogue_mismatches": epilogue_mismatches, "max_abs_err": max_err, "kinds": {}}
+    with torch.inference_mode():
+        for kind, convs in by_kind.items():
+            def replay(convs=convs):
+                for c in convs:
+                    qconv_cuda(*c)
+
+            def plain(convs=convs):
+                for q, wq, scale, bias, stride, groups, relu in convs:
+                    qconv_epilogue(qconv_s32(q, wq, stride, groups), scale, bias, relu)
+
+            doubles = [(q.permute(0, 4, 1, 2, 3).double(), wq.permute(4, 3, 0, 1, 2).double(),
+                        stride, wq.shape[0] // 2, groups) for q, wq, _, _, stride, groups, _
+                       in convs]
+
+            def conv64(doubles=doubles):
+                for x, w, stride, pad, groups in doubles:
+                    F.conv3d(x, w, stride=stride, padding=pad, groups=groups)
+
+            # 20 calls: a trace of Q1 alone holds few kernel records (1 a call
+            # at the stem), and the profiler can lose some of them
+            _, split = device_ms(replay, iters=20)
+            kernel_ms = sum(ms for fn, ms in split.items() if "qconv" in fn)
+            check(kernel_ms > 0, f"the profiler saw no Q1 kernel [{kind}]: {split}")
+            bounds = [qconv_bound(c[0], c[1], c[4], c[5]) for c in convs]
+            bound_ms = sum(b[0] for b in bounds)
+            entry = {"convs": len(convs), "ms": kernel_ms, "call_ms": cuda_ms(replay, iters=10),
+                     "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+                     "float64_conv3d_ms": cuda_ms(conv64, iters=2, warmup=1),
+                     "bound_ms": bound_ms, "bound_by": max(bounds)[1],
+                     "int8_ops": sum(b[2] for b in bounds)}
+            if kind == "pointwise":  # cuBLASLt's s8 GEMM on the same integers: a yardstick
+                mats = [(c[0].reshape(-1, c[0].shape[-1]), c[1].reshape(c[1].shape[3], -1))
+                        for c in convs]
+                check(all(a.shape[0] > 16 and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0
+                          for a, b in mats), "a pointwise shape _int_mm does not take")
+
+                def int_mm(mats=mats):
+                    for a, b in mats:
+                        torch._int_mm(a, b)
+
+                entry["int_mm_ms"] = device_ms(int_mm, iters=5)[0]
+            q1["kinds"][kind] = entry
+            log(f"Q1 [{kind}] at batch 8, {len(convs)} conv(s) a forward: {kernel_ms:.4f} ms "
+                f"device time ({entry['call_ms']:.4f} ms per forward's calls), plain "
+                f"{entry['plain_ms']:.3f} ms, float64 F.conv3d of the same integers "
+                f"{entry['float64_conv3d_ms']:.3f} ms"
+                + (f", torch._int_mm {entry['int_mm_ms']:.4f} ms" if "int_mm_ms" in entry else "")
+                + f", bound {bound_ms:.5f} ms ({entry['int8_ops']:.3e} int8 ops) [{card}]")
+    for field in ("ms", "plain_ms", "bound_ms"):
+        q1[field] = sum(k[field] for k in q1["kinds"].values())
+    q1["int_mm_ms_pointwise"] = q1["kinds"]["pointwise"]["int_mm_ms"]
+    q1["bound_by"] = max(q1["kinds"].values(), key=lambda k: k["bound_ms"])["bound_by"]
+    log(f"Q1 over one int8 forward at batch 8: {q1['ms']:.4f} ms device time, plain "
+        f"{q1['plain_ms']:.3f} ms, bound {q1['bound_ms']:.5f} ms [{card}]")
+    out["q1"] = q1
+
+    # the int8 bundle at batch 8 and 32, against the live int8 program
+    t0 = time.perf_counter()
+    exports, manifest = export_detector(config, cal_state, INT8_BATCHES, quantize="int8",
+                                        calib_images=calib)
+    int8_export_s = time.perf_counter() - t0
+    int8 = ServingDetector(save_bundle(tmp / "int8.mslx", exports, manifest))
+    check(set(manifest["custom_ops"]) == {"msl::greedy_nms", "msl::qconv"},
+          f"the int8 bundle calls {manifest['custom_ops']}")
+    live_q = DetectionProgram.for_config(qmodel, config).cuda()
+    for c in counters:
+        c.launches = 0
+    got = int8.detect(x8)
+    torch.cuda.synchronize()
+    int8_launches = [c.launches for c in counters]
+    check(int8_launches == [1, 0, 0, n_convs],
+          f"the int8 bundle launched (K1, K2, K3, Q1) {int8_launches} in a call")
+    out["launches"]["int8"] = int8_launches
+    with torch.inference_mode():
+        want = live_q(x8)
+    for key in want:
+        check(torch.equal(got[key], want[key]), f"int8 bundle: {key} != the live int8 program's")
+    with torch.inference_mode():
+        locs_b, scores_b = bundles["off"]["live"].model(x8)
+    rel = {name: float((a.float() - b.float()).norm() / b.float().norm())
+           for name, a, b in (("locs", locs_q, locs_b), ("scores", scores_q, scores_b))}
+    bf16_det = bundles["off"]["det"].predict(requests[2])
+    int8_det = {k: v.cpu().numpy() for k, v in got.items()}
+    matched = total = 0
+    for i in range(8):
+        n, m = int(int8_det["count"][i]), int(bf16_det["count"][i])
+        total += n
+        if n and m:
+            iou = pairwise_iou(torch.from_numpy(int8_det["boxes"][i, :n]),
+                               torch.from_numpy(bf16_det["boxes"][i, :m]))
+            same = (torch.from_numpy(int8_det["labels"][i, :n])[:, None]
+                    == torch.from_numpy(bf16_det["labels"][i, :m])[None, :])
+            matched += int(((iou > 0.5) & same).any(1).sum())
+    rates = {}
+    for b in INT8_BATCHES:
+        imgs = rng.standard_normal((b, *config.input_size, 1), dtype=np.float32)
+        for who, det_ in (("bf16", bundles["off"]["det"]), ("int8", int8), ("int8", int8),
+                          ("bf16", bundles["off"]["det"])):
+            rates.setdefault(f"{who} batch {b}", []).append(
+                volumes_per_s(det_.predict, imgs, {8: 10, 32: 5}[b]))
+    # device time of a bundle call, bf16 default against int8, in turns
+    # (bf16, int8, int8, bf16) at each batch: busy ms, idle share, launches
+    # and the busy time by kind of kernel
+    kinds = (("Q1", ("qconv",)), ("cuDNN conv", ("conv", "cudnn", "xmma", "sm90_")),
+             ("K1", ("nms",)))
+    device = {}
+    for b in INT8_BATCHES:
+        xb = torch.from_numpy(rng.standard_normal((b, *config.input_size, 1),
+                                                  dtype=np.float32)).cuda().to(
+            config.compute_dtype)
+        for who, det_ in (("bf16", bundles["off"]["det"]), ("int8", int8), ("int8", int8),
+                          ("bf16", bundles["off"]["det"])):
+            prof = profile_calls(f"{who} bundle", f"bundle calls at batch {b}",
+                                 partial(det_.detect, xb), card, top=6)
+            split = dict.fromkeys([k for k, _ in kinds] + ["other"], 0.0)
+            for kernel, ms in prof.pop("by_kernel").items():
+                kind = next((k for k, keys in kinds
+                             if any(key in kernel.lower() for key in keys)), "other")
+                split[kind] += ms
+            device.setdefault(f"{who} batch {b}", []).append({**prof, "busy_ms_by_kind": split})
+    log("bundle calls on the card, bf16 default / int8 in turns: " + "; ".join(
+        f"{k}: " + ", ".join(f"busy {r['busy_ms']:.3f} ms (" + ", ".join(
+            f"{kind} {ms:.3f}" for kind, ms in r["busy_ms_by_kind"].items())
+            + f"), idle {r['idle_share']:.3f}, {r['launches']} launches" for r in rs)
+        for k, rs in device.items()) + f" [{card}]")
+    out["timing"]["int8"] = {"quantize_s": quantize_s, "export_s": int8_export_s,
+                             "volumes_per_s": rates, "device": device,
+                             "rel_err_vs_bf16": rel,
+                             "detections": total, "matched_iou_0.5": matched,
+                             "bf16_detections": int(bf16_det["count"].sum())}
+    log(f"int8 bundle at batches {INT8_BATCHES} (export {int8_export_s:.1f} s): detections == "
+        f"the live int8 program's; launches a call (K1, K2, K3, Q1) {int8_launches}; against "
+        f"the bf16 model on the same volumes: locs relative error {rel['locs']:.4f}, scores "
+        f"{rel['scores']:.4f}; {matched} of the int8 bundle's {total} detections have an IoU > "
+        f"0.5 match of their label among the bf16 bundle's {int(bf16_det['count'].sum())}; "
+        "volumes/s (bf16, int8, int8, bf16): " + "; ".join(
+            f"{k} {', '.join(f'{v:.1f}' for v in vs)}" for k, vs in rates.items()) + f" [{card}]")
+    check(total > 0, "the int8 bundle found nothing")
+
+    # 3. the sliding-window bundle at config #3, V = 1, default path
+    t0 = time.perf_counter()
+    exports, manifest = export_sliding_window_detector(config, cal_state, FULL_VOLUME, (1,))
+    sw_export_s = time.perf_counter() - t0
+    sw = ServingDetector(save_bundle(tmp / "full.mslx", exports, manifest))
+    state = create_train_state(config, device="cuda", state_dict=cal_state)
+    run = sliding_window.make_sliding_window_detector(config, FULL_VOLUME)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    vol = torch.randn((1, *FULL_VOLUME, 1), generator=gen, device="cuda")
+    want = run(state, vol[0])
+    for c in counters:
+        c.launches = 0
+    got = sw.detect(vol.to(config.compute_dtype))
+    torch.cuda.synchronize()
+    sw_launches = [c.launches for c in counters]
+    check(sw_launches == [2, 0, 0, 0],
+          f"the sliding-window bundle launched (K1, K2, K3, Q1) {sw_launches} in a call")
+    out["launches"]["sliding_window"] = sw_launches
+    for key in want:
+        check(torch.equal(got[key], want[key]),
+              f"sliding-window bundle: {key} != the live sliding window's")
+    check(int(want["count"].min()) > 0, "the sliding-window bundle found nothing")
+    xb = vol.to(config.compute_dtype)
+    sw.detect(xb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        det = sw.detect(xb)
+    det["count"].cpu()
+    sw_rate = 10 / (time.perf_counter() - t0)
+    out["timing"]["sliding_window"] = {"export_s": sw_export_s, "volumes_per_s": sw_rate}
+    log(f"sliding-window bundle {FULL_VOLUME} V=1 (export {sw_export_s:.1f} s): detections == "
+        f"the live sliding window's ({int(want['count'][0])}); launches a call (K1, K2, K3, Q1) "
+        f"{sw_launches}; {sw_rate:.2f} volumes/s (host clock, volume on the card) [{card}]")
+
+    # 4. HTTP: the default bundle at batches 1, 2, 4 and 8, concurrent clients
+    cfg = SSD3DConfig.create(**HEADLINE, **FLAG_SETTINGS["off"])
+    exports, manifest = export_detector(cfg, cal_state, [b for b in HTTP_BATCHES
+                                                         if b not in BUNDLE_BATCHES])
+    exports |= {k: v for k, v in bundles["off"]["exports"].items() if k[0] in HTTP_BATCHES}
+    manifest["batch_sizes"] = sorted(b for b, _ in exports)
+    det = ServingDetector(save_bundle(tmp / "http.mslx", exports, manifest))
+    check(det.batch_sizes == list(HTTP_BATCHES), f"the HTTP bundle holds {det.batch_sizes}")
+    n_vol = HTTP_CLIENTS * HTTP_POSTS
+    vols = rng.standard_normal((n_vol, *config.input_size, 1), dtype=np.float32)
+
+    def rows_at(b):
+        """Each volume's detections as a row of the batch-b program."""
+        outs = [det.detect(torch.from_numpy(vols[i:i + b]).cuda().to(det.input_dtype))
+                for i in range(0, n_vol, b)]
+        return {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+
+    ref = {b: rows_at(b) for b in HTTP_BATCHES}
+    server = make_http_server(det, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    latencies = [0.0] * n_vol
+
+    def client(c):
+        got = {}
+        for j in range(HTTP_POSTS):
+            i = c * HTTP_POSTS + j
+            buf = io.BytesIO()
+            np.save(buf, vols[i:i + 1])
+            req = urllib.request.Request(f"{base}/predict", data=buf.getvalue(), method="POST")
+            t0 = time.perf_counter()
+            got[i] = json.loads(urllib.request.urlopen(req, timeout=300).read())["volumes"]
+            latencies[i] = time.perf_counter() - t0
+        return got
+
+    try:
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=HTTP_CLIENTS) as ex:
+            responses = {i: r for got in ex.map(client, range(HTTP_CLIENTS))
+                         for i, r in got.items()}
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        http_launches = [c.launches for c in counters]
+        predict_calls = server.batcher.device_calls
+    finally:
+        server.shutdown()
+        server.batcher.close()
+        thread.join(timeout=10)
+    out["launches"]["http"] = http_launches
+    # each program call launches K1 once and nothing else of the port
+    program_calls = http_launches[0]
+    check(http_launches[1:] == [0, 0, 0], f"the HTTP run launched (K1, K2, K3, Q1) "
+          f"{http_launches}")
+
+    def same(v, res, row):
+        n = int(res["count"][row])
+        return (v["count"] == n and v["labels"] == res["labels"][row][:n].tolist()
+                and np.array_equal(np.asarray(v["boxes_frac"], np.float32).reshape(-1, 6),
+                                   res["boxes"][row][:n])
+                and np.array_equal(np.asarray(v["scores"], np.float32), res["scores"][row][:n]))
+
+    # a response may equal its row at several batch sizes (where the
+    # programs agree on that volume), so each size counts its own matches
+    at_batch = dict.fromkeys(HTTP_BATCHES, 0)
+    for i, (v,) in responses.items():
+        matches = [b for b in HTTP_BATCHES if same(v, ref[b], i)]
+        check(bool(matches), f"HTTP response {i} != its volume's row of any program's output")
+        for b in matches:
+            at_batch[b] += 1
+    check(program_calls < n_vol, f"{program_calls} program calls for {n_vol} requests")
+    p50, p95 = (float(np.percentile(latencies, p)) * 1e3 for p in (50, 95))
+    out["timing"]["http"] = {"requests": n_vol, "predict_calls": predict_calls,
+                             "program_calls": program_calls, "p50_ms": p50, "p95_ms": p95,
+                             "volumes_per_s": n_vol / wall,
+                             "equal_to_a_row_at_batch": at_batch}
+    log(f"HTTP on the bundle at batches {HTTP_BATCHES}: {HTTP_CLIENTS} clients x {HTTP_POSTS} "
+        f"POSTs of one volume: {predict_calls} coalesced predict calls and {program_calls} "
+        f"program calls (K1 launches) for {n_vol} requests; every response == its volume's row "
+        f"of a program's output (responses equal to their row at each batch size: {at_batch}); latency p50 {p50:.1f} ms, p95 "
+        f"{p95:.1f} ms; {n_vol / wall:.1f} volumes/s [{card}]")
+    log(f"deployment phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def op_dispatch_us(fused, x1, card) -> dict:
+    """Host microseconds a call that the registered op adds, per kernel at
+    batch 1 on the operands of the fused path's forward: the wrapper (op
+    dispatch, then the launch) against the launch function alone, in turns
+    (op, direct, direct, op), 200 calls each, the best of each."""
+    kw = dict(n_classes=2, min_score=0.5, top_k=100)
+    with torch.inference_mode():
+        locs, scores = fused.model(x1)
+        boxes, _, valid = nms_candidates(locs, scores, fused.priors, **kw)
+        boxes = boxes.contiguous()
+        blocks = fused.model.base.features
+        h = layer_inputs(fused.model, x1)[3].contiguous(memory_format=torch.channels_last_3d)
+        dw = (h, *block_dw_operands(blocks[3], h.dtype))
+        t_in = blocks[3](h).contiguous(memory_format=torch.channels_last_3d)
+        tail = [blocks[i].folded_params() for i in range(4, 8)]
+        pairs = {
+            "K1": (partial(greedy_nms_cuda, boxes, valid, 0.5),
+                   partial(kernels.nms._launch, boxes, valid, 0.5, None, None)),
+            "K2": (partial(fused_depthwise_bn_relu_cuda, *dw),
+                   partial(kernels.depthwise._launch, *dw, [])),
+            "K3": (partial(fused_tail_cuda, t_in, tail, (1, 3)),
+                   partial(kernels.tail._launch, t_in, tail, [1, 3])),
+        }
+
+        def host_us(fn, n=200):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e6
+
+        out = {}
+        for name, (op, direct) in pairs.items():
+            times = {"op": [], "direct": []}
+            for who in ("op", "direct", "direct", "op"):
+                times[who].append(host_us(op if who == "op" else direct))
+            out[name] = {"op_us": min(times["op"]), "direct_us": min(times["direct"])}
+            out[name]["added_us"] = out[name]["op_us"] - out[name]["direct_us"]
+    log("op dispatch at batch 1, host us a call (wrapper through the registered op / the "
+        "launch function alone / added): " + "; ".join(
+            f"{k} {v['op_us']:.1f} / {v['direct_us']:.1f} / {v['added_us']:.1f}"
+            for k, v in out.items())
+        + f"; K1 + K2 + K3 (a fused Detector.detect call) add "
+        f"{sum(v['added_us'] for v in out.values()):.1f} us [{card}]")
+    return out
+
+
 # ---------------------------------------------------------------- phases
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1847,6 +2377,8 @@ def main() -> int:
         scoring = drive_scoring(card, counters, Path(tmp), entry["root"], entry["last"])
         # 4e. full-resolution volumes
         full = drive_full_resolution(card, counters, cal_state, Path(tmp))
+        # 4f. deployment: bundles, int8 and HTTP
+        deploy = drive_deployment(card, counters + [qconv_cuda], cal_state, Path(tmp))
 
     # 5. times on the card. Each kernel, its plain version and (for K2) the
     # cuDNN sequence it replaces are timed twice: per call with CUDA events
@@ -1946,6 +2478,7 @@ def main() -> int:
             for name, ms in detect_ms.items():
                 log(f"Detector.detect batch {b} [{name}]: median {float(np.median(ms)):.3f} ms, "
                     f"range {min(ms):.3f}-{max(ms):.3f} ms over 3 rounds [{card}]")
+    dispatch = op_dispatch_us(fused, volumes(1).to(config.compute_dtype), card)
 
     for b in (1, 8, 32):
         imgs = host_rng.standard_normal((b, *config.input_size, 1), dtype=np.float32)
@@ -2127,6 +2660,42 @@ def main() -> int:
     kernels[0]["max_abs_err"] = 0.0 if mismatches + full["mismatches"] == 0 else 1.0
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], full["dw_check"][1])
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], full["tail_check"][0])
+    # the deployment path (phase 4f): launches a bundle call, by bundle
+    for i, kernel in enumerate(kernels):
+        kernel["launches_bundle_path"] = {name: launches[i]
+                                          for name, launches in deploy["launches"].items()}
+    kernels[0]["op_dispatch_us_batch1"] = dispatch["K1"]
+    kernels[1]["op_dispatch_us_batch1"] = dispatch["K2"]
+    kernels[2]["op_dispatch_us_batch1"] = dispatch["K3"]
+    q1 = deploy["q1"]
+    kernels.append({
+        "name": "qconv",
+        "route": "cuda",
+        "source": "mslesions3d_tpu_torch/csrc/qconv.cu",
+        "replaces": "mslesions3d_tpu/quant.py:212",
+        "tpu_kernel": False,
+        "replaces_what": "_qconv: XLA's conv_general_dilated on int8 operands with int32 "
+                         "accumulation (not a Pallas kernel)",
+        "launches": deploy["launches"]["int8"][3],
+        "launches_bundle_path": {name: launches[3]
+                                 for name, launches in deploy["launches"].items()},
+        "max_abs_err": q1["max_abs_err"],
+        "int32_mismatches": q1["int_mismatches"],
+        "epilogue_mismatches": q1["epilogue_mismatches"],
+        "ms": q1["ms"],
+        "plain_ms": q1["plain_ms"],
+        "bound_ms": q1["bound_ms"],
+        "bound_by": q1["bound_by"],
+        "library_ms": None,
+        "library": "none: torch on CUDA has no int8 conv3d; torch._int_mm (cuBLASLt s8 GEMM) "
+                   "on the pointwise convs' integers is timed as a yardstick "
+                   "(int_mm_ms_pointwise), never used by the port",
+        "int_mm_ms_pointwise": q1["int_mm_ms_pointwise"],
+        "by_kind": q1["kinds"],
+        "shape": "every conv of one int8 forward of the 96^3 model at batch 8 (sums over the "
+                 "convs)",
+    })
+    log("deployment: " + json.dumps({**deploy["timing"], "card": card}))
     log("full resolution: " + json.dumps({**full["timing"], "card": card}))
     log("training: " + json.dumps({
         "step_ms": train["step_ms"], "eval_step_ms_batch8": train["eval_ms"],

@@ -3,6 +3,9 @@
 - ``train``: train from a dataset on disk (``Trainer.fit``);
 - ``predict``: a checkpoint's detections per subject, and per-subject metrics;
 - ``eval``: the metric files of a prediction run at a score and IoU threshold;
+- ``export``: a checkpoint as a ``.mslx`` serving bundle (``torch.export``
+  programs, optionally int8 or the whole sliding window);
+- ``serve``: a bundle's detections for NIfTI volumes, or an HTTP server;
 - ``import_torch``: a reference PyTorch checkpoint as a port checkpoint;
 - ``tune_lr``: the learning-rate sweep;
 - ``model_insight``: prior-box wireframes and parameter histograms;

@@ -22,7 +22,7 @@ float32 checkpoint is scored in IEEE float32: TF32 is off for convolutions
 and matmuls, as in training.
 
 Not ported yet: ``--sw_data_parallel`` (sliding-window patches over several
-cards; ROADMAP item 17), which raises.
+cards; ROADMAP item 17b), which raises.
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def check_ported(sw_data_parallel=False) -> None:
     if sw_data_parallel:
         raise NotImplementedError(
             "--sw_data_parallel (sliding-window patches over several cards) is not ported "
-            "yet (ROADMAP item 17)")
+            "yet (ROADMAP item 17b)")
 
 
 def build_datamodule(args):

@@ -12,7 +12,7 @@ the device from full-resolution volumes, validated on whole volumes
 through the sliding window; score with ``cli.predict -sw 1``),
 --device_boxes (GT boxes by connected components on the device), and the
 JAX package's --data_parallel and --spatial_shards, which raise until
-ROADMAP item 17 is ported. A float32 config trains in IEEE float32: TF32 is
+ROADMAP item 17b is ported. A float32 config trains in IEEE float32: TF32 is
 off for convolutions and matmuls (``train.state.use_ieee_float32``).
 """
 

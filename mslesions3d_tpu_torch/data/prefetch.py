@@ -27,8 +27,12 @@ def _to_device(value: np.ndarray, device: torch.device) -> torch.Tensor:
     return tensor.to(device)
 
 
-def prefetch_batches(iterator, prefetch: int = 2, device="cpu"):
+def prefetch_batches(iterator, prefetch: int = 2, device="cuda"):
     """Wrap a host-batch iterator with a threaded producer that copies to ``device``.
+
+    ``device`` defaults to the card, as the JAX package's ``device_put``
+    defaults to the accelerator; without a card it raises, and the CPU must
+    be asked for with ``device="cpu"``.
 
     Array leaves (numpy arrays) become tensors on ``device`` as soon as a
     batch is produced; other entries pass through. Yields batches in order,
@@ -38,6 +42,9 @@ def prefetch_batches(iterator, prefetch: int = 2, device="cpu"):
     batch before its copy has landed.
     """
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("prefetch_batches: no CUDA device is available; pass device='cpu' "
+                           "to copy the batches to the CPU")
     q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
 
     def put(batch):

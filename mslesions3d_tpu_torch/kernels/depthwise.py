@@ -36,6 +36,7 @@ memory: C is contiguous, as the kernel wants.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -210,22 +211,49 @@ def fused_depthwise_bn_relu_cuda(x: torch.Tensor, weights: torch.Tensor, gamma: 
     """relu(dwconv3x3x3(x) * gamma + beta), stride 1, zero padding 1.
 
     x (B, C, D, H, W) float32 or bfloat16 in ``channels_last_3d`` memory;
-    weights (3, 3, 3, C) in x's dtype; gamma, beta (C,) float32. On CUDA
-    tensors this launches the kernel on the current stream, without
-    synchronising, and counts the launch in
-    ``fused_depthwise_bn_relu_cuda.launches``; ``plan`` (by default
-    :func:`plan_depthwise`'s for x) chooses the variant and tile, and must be
-    one that :func:`plan_depthwise` gives for x with its tile fixed. On CPU
-    tensors it returns :func:`depthwise_bn_relu`. Anything else raises.
+    weights (3, 3, 3, C) in x's dtype; gamma, beta (C,) float32. Calls the
+    registered op ``msl::fused_depthwise_bn_relu``, so that ``torch.export``
+    captures it. On CUDA tensors the op launches the kernel on the current
+    stream, without synchronising, and counts the launch in
+    ``fused_depthwise_bn_relu_cuda.launches`` (inside an exported program
+    too); ``plan`` (by default :func:`plan_depthwise`'s for x) chooses the
+    variant and tile, and must be one that :func:`plan_depthwise` gives for
+    x with its tile fixed. On CPU tensors the op returns
+    :func:`depthwise_bn_relu`. Anything else raises.
     """
     tensors = (x, weights, gamma, beta)
-    if all(t.device.type == "cpu" for t in tensors):
-        return depthwise_bn_relu(x, weights, gamma, beta)
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+    if not all(t.device.type == "cpu" for t in tensors) and (
+            x.device.type != "cuda" or any(t.device != x.device for t in tensors)):
         raise ValueError(
             "fused_depthwise_bn_relu_cuda: x, weights, gamma and beta must be on one CUDA "
             f"device (or all on the CPU); got {[str(t.device) for t in tensors]}"
         )
+    tile = [] if plan is None else [VARIANTS[plan.variant], *dataclasses.astuple(plan)[1:]]
+    return torch.ops.msl.fused_depthwise_bn_relu(x, weights, gamma, beta, tile)
+
+
+fused_depthwise_bn_relu_cuda.launches = 0
+
+
+@torch.library.custom_op("msl::fused_depthwise_bn_relu", mutates_args=())
+def _depthwise_op(x: torch.Tensor, weights: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor, tile: list[int]) -> torch.Tensor:
+    """K2 as a registered op; ``tile`` is [] (the planner's choice) or a
+    :class:`DepthwisePlan`'s fields, the variant as 0 (tiled) or 1 (direct)."""
+    if x.device.type == "cpu":
+        return depthwise_bn_relu(x, weights, gamma, beta)
+    return _launch(x, weights, gamma, beta, tile)
+
+
+@_depthwise_op.register_fake
+def _(x, weights, gamma, beta, tile):
+    return torch.empty_like(x, memory_format=torch.channels_last_3d)
+
+
+def _launch(x: torch.Tensor, weights: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            tile: list) -> torch.Tensor:
+    """Check the operands and launch K2 on CUDA tensors."""
+    tensors = (x, weights, gamma, beta)
     if x.dim() != 5:
         raise ValueError(f"fused_depthwise_bn_relu_cuda: x must be (B, C, D, H, W), got "
                          f"{tuple(x.shape)}")
@@ -260,12 +288,14 @@ def fused_depthwise_bn_relu_cuda(x: torch.Tensor, weights: torch.Tensor, gamma: 
     if out.numel() == 0:
         return out
     align = min(16, x.data_ptr() & -x.data_ptr())
-    if plan is None:
+    if not tile:
         plan = plan_depthwise(x.dtype, x.shape, align)
-    elif plan != plan_depthwise(x.dtype, x.shape, align, variant=plan.variant, cs=plan.cs or None,
-                                td=plan.td or None, th=plan.th or None):
-        raise ValueError(f"fused_depthwise_bn_relu_cuda: {plan} is not a plan for x "
-                         f"{tuple(x.shape)} {x.dtype} at {align}-byte alignment")
+    else:
+        plan = DepthwisePlan(("tiled", "direct")[tile[0]], *tile[1:])
+        if plan != plan_depthwise(x.dtype, x.shape, align, variant=plan.variant,
+                                  cs=plan.cs or None, td=plan.td or None, th=plan.th or None):
+            raise ValueError(f"fused_depthwise_bn_relu_cuda: {plan} is not a plan for x "
+                             f"{tuple(x.shape)} {x.dtype} at {align}-byte alignment")
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -281,6 +311,3 @@ def fused_depthwise_bn_relu_cuda(x: torch.Tensor, weights: torch.Tensor, gamma: 
         )
     fused_depthwise_bn_relu_cuda.launches += 1
     return out
-
-
-fused_depthwise_bn_relu_cuda.launches = 0

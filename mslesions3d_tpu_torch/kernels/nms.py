@@ -156,21 +156,48 @@ def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float
                     plan: NmsPlan | None = None) -> torch.Tensor:
     """Batched exact greedy NMS: boxes (N, K, 6) float32, valid (N, K) bool -> keep (N, K).
 
-    On CUDA tensors this launches the kernel on the current stream, without
-    synchronising, and counts the launch in ``greedy_nms_cuda.launches``. It
+    Calls the registered op ``msl::greedy_nms``, so that ``torch.export``
+    captures it. On CUDA tensors the op launches the kernel on the current
+    stream, without synchronising, and counts the launch in
+    ``greedy_nms_cuda.launches`` (inside an exported program too). It
     takes any K; ``plan`` (default :func:`plan_nms` of K) picks the walk.
     Its scratch is N x nwp x (K + 64) 64-bit words, nwp = ceil(K/64)
     rounded up to even: about 64 MB at the 96^3 headline with top_k = 395
     and batch 32 (N = 32, K = 3942, nwp = 62), and 1 MB at K = 1000, N = 8.
-    On CPU tensors it returns :func:`greedy_nms`. Anything else raises.
+    On CPU tensors the op returns :func:`greedy_nms`. Anything else raises.
     """
-    if boxes.device.type == "cpu" and valid.device.type == "cpu":
-        return greedy_nms(boxes, valid, max_overlap)
-    if boxes.device.type != "cuda" or valid.device != boxes.device:
+    if not (boxes.device.type == "cpu" and valid.device.type == "cpu") and (
+            boxes.device.type != "cuda" or valid.device != boxes.device):
         raise ValueError(
             f"greedy_nms_cuda: boxes on {boxes.device} and valid on {valid.device}; "
             "both must be on the same CUDA device (or both on the CPU)"
         )
+    walk, stages = (plan.walk, plan.stages) if plan is not None else ("", -1)
+    return torch.ops.msl.greedy_nms(boxes, valid, float(max_overlap), walk, stages)
+
+
+greedy_nms_cuda.launches = 0
+
+
+@torch.library.custom_op("msl::greedy_nms", mutates_args=())
+def _greedy_nms_op(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float, walk: str,
+                   stages: int) -> torch.Tensor:
+    """K1 as a registered op; ``walk`` "" and ``stages`` -1 leave the walk to
+    :func:`plan_nms`."""
+    if boxes.device.type == "cpu":
+        keep = greedy_nms(boxes, valid, max_overlap)
+        return keep.clone() if keep is valid else keep  # an op's output never aliases its input
+    return _launch(boxes, valid, max_overlap, walk or None, None if stages < 0 else stages)
+
+
+@_greedy_nms_op.register_fake
+def _(boxes, valid, max_overlap, walk, stages):
+    return torch.empty_like(valid)
+
+
+def _launch(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float,
+            walk: str | None, stages: int | None) -> torch.Tensor:
+    """Check the operands and launch K1 on CUDA tensors."""
     if boxes.dim() != 3 or boxes.shape[2] != 6 or valid.shape != boxes.shape[:2]:
         raise ValueError(
             f"greedy_nms_cuda: expected boxes (N, K, 6) and valid (N, K), got "
@@ -188,7 +215,7 @@ def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float
     if n == 0 or k == 0:
         return keep
     # a given plan is re-derived for this K: one that does not fit raises
-    plan = plan_nms(k) if plan is None else plan_nms(k, walk=plan.walk, stages=plan.stages)
+    plan = plan_nms(k, walk=walk, stages=stages)
     nwp = mask_words(k)
     # the mask rows (n, k, nwp), then the transposed diagonal blocks (n, nwp, 64)
     scratch = torch.empty(n * nwp * (k + 64), dtype=torch.int64, device=boxes.device)
@@ -207,5 +234,3 @@ def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float
     greedy_nms_cuda.launches += 1
     return keep
 
-
-greedy_nms_cuda.launches = 0

@@ -198,20 +198,55 @@ def _layer_operands(layer: dict, x: torch.Tensor, cin: int) -> tuple:
     return dw_w, vectors[0], vectors[1], pw_w, vectors[2], vectors[3]
 
 
+WEIGHTS = ("dw_w", "dw_gamma", "dw_beta", "pw_w", "pw_gamma", "pw_beta")  # a block's, in order
+
+
 def fused_tail_cuda(x: torch.Tensor, layers, emit) -> list:
     """Run a chain of depthwise-separable blocks; returns the maps named in ``emit``.
 
     x (B, C, D, H, W) float32 or bfloat16 in ``channels_last_3d`` memory.
-    On CUDA tensors this launches the kernels :func:`plan_tail` picks (one
-    for the whole chain at the headline, else one per block) on the current
-    stream, without synchronising, and counts each launch in
-    ``fused_tail_cuda.launches``. On CPU tensors it returns
+    Calls the registered op ``msl::fused_tail`` (x, the blocks' weights
+    flat in ``WEIGHTS`` order, the strides, the sorted ``emit``), so that
+    ``torch.export`` captures it. On CUDA tensors the op launches the
+    kernels :func:`plan_tail` picks (one for the whole chain at the
+    headline, else one per block) on the current stream, without
+    synchronising, and counts each launch in ``fused_tail_cuda.launches``
+    (inside an exported program too). On CPU tensors the op returns
     :func:`tail_reference`. Anything else raises.
     """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_tail_cuda: x on {x.device}; CUDA or CPU only")
+    weights = [layer[k] for layer in layers for k in WEIGHTS]
+    strides = [int(layer["stride"]) for layer in layers]
+    return torch.ops.msl.fused_tail(x, weights, strides, sorted(set(emit)))
+
+
+fused_tail_cuda.launches = 0
+
+
+def _unflatten(weights, strides) -> list:
+    return [dict(zip(WEIGHTS, weights[6 * i: 6 * i + 6]), stride=s) for i, s in enumerate(strides)]
+
+
+@torch.library.custom_op("msl::fused_tail", mutates_args=())
+def _tail_op(x: torch.Tensor, weights: list[torch.Tensor], strides: list[int],
+             emit: list[int]) -> list[torch.Tensor]:
+    """K3 as a registered op: the blocks' weights flat, six a block."""
+    layers = _unflatten(weights, strides)
     if x.device.type == "cpu":
         return tail_reference(x, layers, emit)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_tail_cuda: x on {x.device}; CUDA or CPU only")
+    return _launch(x, layers, emit)
+
+
+@_tail_op.register_fake
+def _(x, weights, strides, emit):
+    specs = [(w.shape[0], w.shape[1], s) for w, s in zip(weights[3::6], strides)]
+    shapes = _out_shapes(x.permute(0, 2, 3, 4, 1), specs)
+    return [x.new_empty(shapes[i]).permute(0, 4, 1, 2, 3) for i in emit]
+
+
+def _launch(x: torch.Tensor, layers, emit) -> list:
+    """Check the operands and launch K3 on CUDA tensors."""
     if x.dim() != 5 or x.dtype not in DTYPES:
         raise ValueError(f"fused_tail_cuda: x must be (B, C, D, H, W) float32 or bfloat16, "
                          f"got {tuple(x.shape)} {x.dtype}")
@@ -305,6 +340,3 @@ def _run_blocks(lib, cur, operands, specs, emit, stream) -> list:
             outs.append(emitted.permute(0, 4, 1, 2, 3))
         cur = chain
     return outs
-
-
-fused_tail_cuda.launches = 0

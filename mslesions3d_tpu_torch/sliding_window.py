@@ -83,7 +83,7 @@ def make_sliding_window_detector(
     if mesh is not None:
         raise NotImplementedError(
             "a sliding-window detector over several cards (mesh) is not ported yet "
-            "(ROADMAP item 17)")
+            "(ROADMAP item 17b)")
     if patch_forward is None:
         model = SSD3D(config)
 

@@ -36,7 +36,7 @@ epochs (``patch_val_full_volume``) every validation volume is also scored
 whole through the sliding window (``sliding_window.py``), logged as
 ``mAP/validation_full_*``; the crop's loss stays the checkpoint monitor.
 
-Not ported yet (ROADMAP item 17): ``data_parallel`` and ``spatial_shards >
+Not ported yet (ROADMAP item 17b): ``data_parallel`` and ``spatial_shards >
 1``; each raises ``NotImplementedError``.
 """
 
@@ -82,8 +82,8 @@ class TrainerConfig:
     save_top_k: int = 3
     seed: int = 970205
     use_wandb: bool = False
-    data_parallel: bool = False  # not ported yet: raises (ROADMAP item 17)
-    spatial_shards: int = 1  # > 1 not ported yet: raises (ROADMAP item 17)
+    data_parallel: bool = False  # not ported yet: raises (ROADMAP item 17b)
+    spatial_shards: int = 1  # > 1 not ported yet: raises (ROADMAP item 17b)
     # train on random lesion-biased patches of config.input_size cropped on
     # the device from full-resolution volumes (data/patches.py); validation
     # uses a deterministic lesion-centred crop. The datamodule must yield
@@ -120,7 +120,7 @@ class TrainerConfig:
 def _check_ported(cfg: TrainerConfig) -> None:
     if cfg.data_parallel or cfg.spatial_shards > 1:
         raise NotImplementedError(
-            "data_parallel and spatial_shards > 1 are not ported yet (ROADMAP item 17)")
+            "data_parallel and spatial_shards > 1 are not ported yet (ROADMAP item 17b)")
 
 
 def _host(value):

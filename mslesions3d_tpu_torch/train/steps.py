@@ -14,7 +14,7 @@ and optionally ``batch_mask`` (B,). With ``patch_training`` the images are
 full-resolution volumes and the steps crop ``config.input_size`` patches
 from them on the device (``data/patches.py``).
 
-Not ported yet: the sharded steps (ROADMAP item 17). The JAX package's
+Not ported yet: the sharded steps (ROADMAP item 17b). The JAX package's
 whole-epoch scan is a TPU dispatch workaround that gives the same numbers
 as stepping; the port steps.
 """

@@ -344,6 +344,18 @@ def test_prefetch_keeps_order_and_moves_arrays():
     assert out[3]["subjects"] == ["s3", None]
 
 
+def test_prefetch_defaults_to_the_card():
+    """The JAX package's prefetch puts batches on the default (accelerator)
+    device; the port's defaults to the card and raises without one."""
+    import inspect
+
+    assert inspect.signature(prefetch_batches).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the test checks the behaviour without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(prefetch_batches(iter([{"image": np.zeros(2)}])))
+
+
 def test_prefetch_reraises_the_producers_error():
     def produce():
         yield {"image": np.zeros(2)}

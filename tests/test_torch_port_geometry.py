@@ -132,7 +132,9 @@ def test_port_imports_no_jax():
             "cli/eval.py", "train/torch_import.py", "cli/import_torch.py", "cli/tune_lr.py",
             "cli/model_insight.py", "cli/stats_objects.py", "cli/plots.py",
             "cli/recipe.py", "data/patches.py", "sliding_window.py",
-            "ops/connected_components.py", "models/convnet.py", "models/layers.py"} <= scanned
+            "ops/connected_components.py", "models/convnet.py", "models/layers.py",
+            "serving.py", "quant.py", "kernels/qconv.py", "cli/export.py",
+            "cli/serve.py"} <= scanned
     offenders = {
         str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files
     }
@@ -166,6 +168,31 @@ def test_detector_defaults_to_the_card():
         pytest.skip("this machine has a card; the test checks the behaviour without one")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Detector(SSD3DConfig.create(input_size=(32, 32, 32)))
+    from mslesions3d_tpu_torch.cli import export as export_cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # before the checkpoint is read
+        export_cli.main(["-m", "no_checkpoint", "-o", "no_bundle.mslx"])
+
+
+def test_serving_entry_points_default_to_the_card():
+    """ServingDetector and the export and serve CLIs take ``cuda`` unless
+    asked for the CPU (the behaviour without a card is held in
+    tests/test_torch_port_cli_serving.py and test_torch_port_serving_bundle.py)."""
+    import inspect
+
+    from mslesions3d_tpu_torch import quant
+    from mslesions3d_tpu_torch.cli import export as export_cli
+    from mslesions3d_tpu_torch.cli import serve as serve_cli
+    from mslesions3d_tpu_torch.serving import (ServingDetector, export_detector,
+                                               export_sliding_window_detector)
+
+    for fn in (ServingDetector, quant.quantize_ssd3d, quant.make_quantized_detection_fn):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    for fn in (export_detector, export_sliding_window_detector):
+        assert inspect.signature(fn).parameters["platforms"].default == ("cuda",), fn
+    for cli in (export_cli, serve_cli):
+        argv = ["-m", "x", "-o", "y"] if cli is export_cli else ["-m", "x"]
+        assert cli.build_parser().parse_args(argv).device == "cuda"
 
 
 def test_pallas_flags_keep_the_state_dict():
