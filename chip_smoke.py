@@ -140,6 +140,32 @@ Phases (any failure exits non-zero and prints no result line):
    batch 1 and 8 under 8 client threads x 4 POSTs of one volume: every
    response equals a direct predict of its volume, fewer device calls than
    requests, p50/p95 latency and volumes/s.
+4g. data parallelism on the one card, each run with the launch counts set
+   to 0 just before it and read just after. (a) Phase 4c's ``cli.train``
+   recipe (24 steps) without ``--data_parallel``, with ``--data_parallel 1``
+   (a one-rank NCCL group formed in the process, whose collectives run) and
+   without it again: the training losses bit-equal and the launches equal;
+   the bare gathered step at the recipe's configuration with and without
+   the mesh of one (the collectives' price, in turns). (b) Two ranks
+   spawned on the card under gloo (CUDA tensors; if gloo refuses them the
+   phase says so and runs CPU tensors): the 64^3 bf16 step at global batch
+   8 with augmentation, 4 rows a rank, against the 1-rank step on the same
+   batch and generator (losses, gradient norm, the gradient vector, BN
+   statistics and each rank's forward within the stated bounds, the params
+   moved the 1-rank step's way wherever the gradient stands above the
+   rounding noise, the ranks' states bit-equal), and the
+   ``with_detections`` step (K1 once a rank, held against the plain NMS on
+   each rank's locs and scores; the ranks' detections against the 1-rank
+   step's: counts equal, each within the stated bound of one of the same
+   volume and label). (c) The sliding window at config #3 over
+   ``mesh=("cuda:0", "cuda:0")`` (V = 1 and 4, default path and both
+   flags): K1 once a shard of each chunk and at each stitch shard, every
+   launch held against the plain NMS, K2 and K3 once a shard and held
+   against their plain versions, detections equal to the unsharded
+   detector's, volumes/s in turns; ``cli.predict -sw 1 --sw_data_parallel
+   1`` on phase 4e's checkpoint writes phase 4e's files byte for byte.
+   (d) The ConvNet's dropout masks at 64^3 drawn for W = 1, 2 and 8 ranks'
+   global batch. The phase's checks are all made, and any failure fails it.
 5. times on the card: K1 (at K = 1000, and at K = 3942 for N = 8 and 32;
    on the full-volume path: a chunk's per-patch NMS at N = 32, K = 500 and
    the stitch at V = 1 and 4, K = 1000, and at top_k 395, K = 3950),
@@ -167,6 +193,7 @@ import io
 import json
 import math
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -215,6 +242,7 @@ from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, plan_tail, tail_
 from mslesions3d_tpu_torch.models.losses import multibox_loss_from_config
 from mslesions3d_tpu_torch.models.ssd3d import SSD3D, SSD3DConfig, model_priors
 from mslesions3d_tpu_torch import sliding_window
+from mslesions3d_tpu_torch.parallel import initialize_multihost, make_mesh, shard_batch
 from mslesions3d_tpu_torch.ops import nms as nms_ops
 from mslesions3d_tpu_torch.ops.metrics import calculate_mAP
 from mslesions3d_tpu_torch.ops.boxes import pairwise_iou
@@ -241,8 +269,10 @@ from mslesions3d_tpu_torch.train import (
     make_gathered_eval_step,
     make_gathered_train_step,
     make_predict_step,
+    make_sharded_gathered_train_step,
     make_train_step,
 )
+from mslesions3d_tpu_torch.train.state import BIAS_MULT, is_bias
 from mslesions3d_tpu_torch.train.steps import _cast
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): float32 outside the
@@ -530,6 +560,12 @@ def compare_dw(name, x, weights, gamma, beta):
     return mismatches, err
 
 
+def merge_dw_checks(prev, new):
+    """Two K2 checks' (mismatches, max abs err) as one: the mismatches
+    summed, the larger error."""
+    return new if prev is None else (prev[0] + new[0], max(prev[1], new[1]))
+
+
 def dw_bound(x):
     n, c, e = x.numel(), x.shape[1], x.element_size()
     nbytes = 2 * n * e + 27 * c * e + 2 * c * 4  # x in, out, weights, gamma/beta
@@ -620,6 +656,11 @@ def compare_tail_exact(name, x, layers, emit):
             f"{'met' if within else 'NOT met'})")
         check(within and share < max_share, f"K3 disagrees with its plain version on {name}")
     return max(errs), shares
+
+
+def merge_tail_checks(prev, new):
+    """Two K3 checks' (max abs err, differing shares) as one."""
+    return new if prev is None else (max(prev[0], new[0]), [*prev[1], *new[1]])
 
 
 def tail_bound(x, layers, emit):
@@ -1435,9 +1476,10 @@ def drive_full_resolution(card, counters, cal_state, tmp: Path) -> dict:
                 check(launches[1] == chunks and launches[2] == chunks * k3_plan.launches,
                       f"sliding window [{key}]: K2 {launches[1]}, K3 {launches[2]} launches for "
                       f"{chunks} chunks ({k3_plan.launches} K3 launch(es) a forward)")
-                out["dw_check"] = compare_dw(f"sliding window [{key}], layer 3", *dw[0])
-                out["tail_check"] = compare_tail_exact(f"sliding window [{key}], layers 4-7",
-                                                       tail_x, tail_layers, tail_emit)
+                out["dw_check"] = merge_dw_checks(out.get("dw_check"), compare_dw(
+                    f"sliding window [{key}], layer 3", *dw[0]))
+                out["tail_check"] = merge_tail_checks(out.get("tail_check"), compare_tail_exact(
+                    f"sliding window [{key}], layers 4-7", tail_x, tail_layers, tail_emit))
                 out["k2"][key], out["k3"][key] = launches[1], launches[2]
             count = det["count"].cpu()
             check(det["boxes"].shape == (v, config.top_k, 6) and bool((count > 0).all())
@@ -1631,6 +1673,7 @@ def drive_full_resolution(card, counters, cal_state, tmp: Path) -> dict:
         f"on the card) {timings[True][1]:.3f} s (NIfTI decode included in both); "
         f"{int(host['box_mask'].sum())} boxes, the same sets [{card}]")
     out["timing"]["device_boxes_s"] = (timings[False][1], timings[True][1])
+    out["patch_root"], out["patch_last"] = root, last
     log(f"full-resolution phase {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2074,6 +2117,501 @@ def drive_deployment(card, counters, cal_state, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- data parallelism
+# phase 4g: a step of two gloo ranks sharing the card against the 1-rank step
+# on the same global batch, bf16 at 64^3: the two round the same float32
+# sums in another order and cuDNN may pick other algorithms at batch 4 than
+# at 8, each a bf16 rounding (2^-8) of some elements; the losses, gradient
+# norm, BN statistics, the whole gradient vector and the forward's locs and
+# scores (relative Frobenius) within 1e-2 (a few bf16 roundings). The
+# params after the step: every element whose effective gradient is above
+# DP_FLIP_FLOOR x the RMS moved the 1-rank step's way, within DP_SAME_WAY
+# lr of it (the first Adam step moves an element by about lr, so a flip
+# ends 2 lr apart; in three runs on an H100 the flipped elements'
+# gradients reached 0.032-0.063 x the RMS, and above 0.1 x the RMS the two
+# differed by 1e-6 lr). The with_detections step's detections: counts
+# equal and each within DP_DET_ATOL (box corners, score) of one of the
+# same volume and label in the other run (1.6e-3 at most there; near ties
+# change places)
+DP_RTOL = 1e-2
+DP_FLIP_FLOOR = 0.3
+DP_SAME_WAY = 1e-2
+DP_DET_ATOL = 1e-2
+DP_TIMEOUT_S = 300
+# phase 4g's ConvNet dropout cost: the global batch's mask a rank draws at W ranks
+DROPOUT_WORLDS = (1, 2, 8)
+
+
+def dp_rank(rank: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of two gloo ranks sharing the card (phase 4g (b)): the
+    64^3 bf16 train step with augmentation and the ``with_detections`` step
+    on its rows of the global batch of 8; saves what it computed."""
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda:0",
+                         timeout_s=DP_TIMEOUT_S)
+    out = {"on": "cuda"}
+    probe = torch.ones(4, device="cuda")
+    try:  # gloo's table lists all_reduce and broadcast for CUDA tensors: check it
+        torch.distributed.all_reduce(probe)
+        torch.distributed.broadcast(probe, 0)
+    except RuntimeError as e:  # recorded and printed by the phase, never silent
+        out.update(on="cpu", cuda_error=f"{type(e).__name__}: {e}")
+    else:
+        check(bool((probe == 2).all()), "gloo's all_reduce of CUDA tensors gave a wrong sum")
+    mesh = make_mesh(device=out["on"], backend="gloo")
+    out["mesh"] = mesh.describe()
+    config = SSD3DConfig.create(**TRAIN)
+    model, priors = SSD3D(config), torch.from_numpy(model_priors(config))
+    state = create_train_state(config, seed=0, device=mesh.device)
+    batch = {k: v.to(mesh.device) for k, v in train_batch(8, torch.Generator(
+        device="cuda").manual_seed(1)).items()}
+    local = shard_batch(batch, mesh)
+    augment = AugmentConfig(**TRAIN_AUGMENT)
+    step = make_train_step(config, model, priors, augment=augment, mesh=mesh, return_grads=True)
+    low = dataclasses.replace(config, min_score=0.05)
+    metric = make_train_step(low, model, priors, augment=augment, mesh=mesh, with_detections=True)
+    greedy_nms_cuda.launches = 0
+    new, m = step(state, local, torch.Generator(device=mesh.device).manual_seed(2))
+    with tapped(model) as outs:
+        _, dm = metric(state, local, torch.Generator(device=mesh.device).manual_seed(3))
+    out["k1"] = greedy_nms_cuda.launches
+    def host(d):
+        return {k: v.detach().cpu() for k, v in d.items()}
+
+    out.update(metrics=host({k: m[k] for k in ("total_loss", "conf_loss", "loc_loss",
+                                                "grad_norm", "n_positives")}),
+               params=host(new.params), batch_stats=host(new.batch_stats),
+               grads=host(m["grads"]),
+               detections=host(dm["detections"]), locs_scores=[t.cpu() for t in outs[0]])
+    gen = torch.Generator(device=mesh.device).manual_seed(4)
+    if out["on"] == "cuda":
+        ms, _ = step_rounds(step, new, local, gen, iters=5)
+        out["step_ms"] = ms
+    torch.save(out, Path(tmp) / f"dp_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def two_ranks_on_one_card(tmp: Path) -> list:
+    """Spawns the two ranks of ``dp_rank`` and waits for them, each join
+    bounded; returns their saved results."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.start_processes(dp_rank, args=(port, str(tmp)), nprocs=2,
+                                               join=False, start_method="spawn")
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < deadline, "the two gloo ranks outlived their timeout")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(tmp / f"dp_rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def match_detections(det: dict, ref: dict) -> torch.Tensor:
+    """For each detection of ``det`` (volumes in order, the first ``count``
+    of each), its distance to the nearest detection of the same volume and
+    label in ``ref``: the larger of the box corners' and the score's
+    largest absolute difference (inf where ``ref`` has none)."""
+    dists = []
+    for v in range(det["count"].shape[0]):
+        n, n_ref = int(det["count"][v]), int(ref["count"][v])
+        boxes, rboxes = det["boxes"][v, :n].float(), ref["boxes"][v, :n_ref].float()
+        d = torch.maximum((boxes[:, None] - rboxes[None]).abs().amax(-1),
+                          (det["scores"][v, :n, None] - ref["scores"][v, None, :n_ref]).abs())
+        d = torch.where(det["labels"][v, :n, None] == ref["labels"][v, None, :n_ref], d,
+                        torch.full_like(d, math.inf))
+        dists.append(d.amin(1) if n_ref else torch.full((n,), math.inf))
+    return torch.cat(dists)
+
+
+def drive_two_ranks(card, tmp: Path, expect) -> dict:
+    """Phase 4g (b): two gloo ranks sharing the card (``dp_rank``) against
+    the 1-rank step on the same global batch and generators: the metrics,
+    the gradients, the BN statistics, the params after the step, each
+    rank's forward and the detections of the ``with_detections`` step."""
+    t0 = time.perf_counter()
+    ranks = two_ranks_on_one_card(tmp)
+    spawn_s = time.perf_counter() - t0
+    on = ranks[0]["on"]
+    expect(all(r["on"] == on for r in ranks), "the ranks ran on different devices")
+    if on == "cpu":
+        log(f"gloo's collectives of CUDA tensors failed on this card "
+            f"({ranks[0]['cuda_error']}): (b) ran on CPU tensors")
+    config = SSD3DConfig.create(**TRAIN)
+    model, priors = SSD3D(config), torch.from_numpy(model_priors(config))
+    state = create_train_state(config, seed=0, device=on)
+    batch = {k: v.to(on) for k, v in train_batch(8, torch.Generator(
+        device="cuda").manual_seed(1)).items()}
+    augment = AugmentConfig(**TRAIN_AUGMENT)
+    new, m = make_train_step(config, model, priors, augment=augment, return_grads=True)(
+        state, batch, torch.Generator(device=on).manual_seed(2))
+    low = dataclasses.replace(config, min_score=0.05)
+    with tapped(model) as outs:
+        _, dm1 = make_train_step(low, model, priors, augment=augment, with_detections=True)(
+            state, batch, torch.Generator(device=on).manual_seed(3))
+    rel = {k: max(abs(float(r["metrics"][k]) - float(m[k])) / abs(float(m[k])) for r in ranks)
+           for k in ("total_loss", "conf_loss", "loc_loss", "grad_norm")}
+    stats_rel = max(float((r["batch_stats"][n] - s.cpu()).abs().max()
+                          / s.cpu().abs().max().clamp(min=1e-12))
+                    for r in ranks for n, s in new.batch_stats.items())
+    names = list(new.params)
+    g1 = torch.cat([m["grads"][n].float().cpu().ravel() for n in names])
+    grads_rel = max(float((torch.cat([r["grads"][n].float().ravel() for n in names]) - g1)
+                          .norm() / g1.norm()) for r in ranks)
+    # the params: Adam's first step moves an element by about its lr, the
+    # way its effective gradient (g + wd p) points; where that gradient is
+    # well above the ranks' rounding noise, each rank's element must have
+    # moved the 1-rank step's way (a flip ends 2 lr apart, the same way
+    # about lr eps / |g|)
+    flat = lambda tree: torch.cat([tree[n].float().cpu().ravel() for n in names])  # noqa: E731
+    p0, p1 = flat(state.params), flat(new.params)
+    lr = torch.cat([torch.full((state.params[n].numel(),),
+                               config.lr * (BIAS_MULT if is_bias(n) else 1.0)) for n in names])
+    g_eff = (g1 + state.tx.weight_decay * p0).abs()
+    g_rms = float(g_eff.square().mean().sqrt())
+    moved = torch.stack([(flat(r["params"]) - p1).abs() / lr for r in ranks]).amax(0)
+    strong = g_eff > DP_FLIP_FLOOR * g_rms
+    worst_strong = float(moved[strong].max())
+    flipped = moved > 1.0
+    flip_top = float(g_eff[flipped].max()) / g_rms if bool(flipped.any()) else 0.0
+    floors = {f: (int((g_eff > f * g_rms).sum()), float(moved[g_eff > f * g_rms].max()))
+              for f in (1e-3, 1e-2, 1e-1, 1.0)}
+    equal_ranks = all(torch.equal(ranks[0][t][n], ranks[1][t][n])
+                      for t in ("params", "batch_stats") for n in ranks[0][t])
+    # each rank's forward (the with_detections step's) against its rows of
+    # the 1-rank forward: a wrong global BN or a wrong row would show here
+    fwd_rel = max(float((r["locs_scores"][t].float() - outs[0][t][4 * i:4 * i + 4].float().cpu())
+                        .norm() / outs[0][t][4 * i:4 * i + 4].float().norm())
+                  for i, r in enumerate(ranks) for t in (0, 1))
+    det2 = {k: torch.cat([r["detections"][k] for r in ranks]) for k in dm1["detections"]}
+    det1 = {k: v.cpu() for k, v in dm1["detections"].items()}
+    for r in ranks:  # each rank's K1 against the plain NMS on its own locs and scores
+        check_plain_detections(f"two gloo ranks, with_detections step [{r['mesh']}]",
+                               {k: v.to(on) for k, v in r["detections"].items()},
+                               *(t.to(on) for t in r["locs_scores"]), priors.to(on), low)
+    # the ranks' detections against the 1-rank step's, as sets (near ties
+    # may change places): counts equal, every detection within
+    # DP_DET_ATOL of one of the same volume and label, both ways
+    dist = torch.cat([match_detections(det2, det1), match_detections(det1, det2)])
+    in_place = (det2["labels"] == det1["labels"]) & ((det2["boxes"] - det1["boxes"]).abs()
+                                                     .amax(-1) <= DP_DET_ATOL)
+    counts_equal = torch.equal(det2["count"], det1["count"])
+    log(f"two gloo ranks sharing the card ({on} tensors; {ranks[0]['mesh']}; spawned and "
+        f"joined in {spawn_s:.1f} s): the 64^3 bf16 step at global batch 8 with augmentation "
+        f"against the 1-rank step on the same batch and generator: relative differences "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in rel.items())}, the gradient vector "
+        f"{grads_rel:.2e}, BN statistics {stats_rel:.2e}, the forward's locs and scores "
+        f"{fwd_rel:.2e} (bound {DP_RTOL} each); the ranks' states bit-equal: {equal_ranks} "
+        f"[{card}]")
+    log(f"  params after the step, in lr of their group: {int(flipped.sum())} of {p1.numel():,} "
+        f"elements moved the other way (the largest effective gradient among them "
+        f"{flip_top:.3e} x its RMS {g_rms:.3e}); above {DP_FLIP_FLOOR} x the RMS "
+        f"({int(strong.sum()):,} elements) the largest difference is {worst_strong:.3e} lr "
+        f"(bound {DP_SAME_WAY}); by floor (x RMS: elements, largest difference in lr) "
+        f"{ {f: (n, round(d, 4)) for f, (n, d) in floors.items()} }")
+    log(f"  with_detections step (min_score 0.05): K1 launches per rank "
+        f"{[r['k1'] for r in ranks]}; detections per volume {det2['count'].tolist()} (1 rank: "
+        f"{det1['count'].tolist()}); each detection's distance to its nearest of the same volume "
+        f"and label in the other run (box corners and score, both ways): largest "
+        f"{float(dist.max()):.3e}, {float((dist <= DP_DET_ATOL).float().mean()):.5f} within "
+        f"{DP_DET_ATOL}, quantiles 0.5/0.9/0.99 "
+        f"{[round(float(q), 6) for q in dist.float().quantile(torch.tensor([0.5, 0.9, 0.99]))]}; "
+        f"{float(in_place.float().mean()):.5f} of the slots hold the same label and box within "
+        f"{DP_DET_ATOL}; ms a step per rank "
+        f"{[[round(v, 3) for v in r.get('step_ms', [])] for r in ranks]} (CUDA events, two "
+        f"processes on one card, collectives through host memory) [{card}]")
+    expect(max(rel.values()) <= DP_RTOL and grads_rel <= DP_RTOL and stats_rel <= DP_RTOL
+           and fwd_rel <= DP_RTOL, "the two-rank step disagrees with the 1-rank step")
+    expect(worst_strong <= DP_SAME_WAY,
+           f"params: an element whose effective gradient is above {DP_FLIP_FLOOR} x the RMS "
+           f"moved {worst_strong:.3e} lr from the 1-rank step's")
+    expect(counts_equal and bool((dist <= DP_DET_ATOL).all()),
+           "the two ranks' detections differ from the 1-rank step's")
+    expect(equal_ranks, "the two ranks' states differ after the step")
+    expect(all(r["k1"] == 1 for r in ranks), "a rank's with_detections step did not launch K1 once")
+    return {"k1": [r["k1"] for r in ranks], "on": on, "relative": rel, "stats_rel": stats_rel,
+            "grads_rel": grads_rel, "forward_rel": fwd_rel, "params_flipped": int(flipped.sum()),
+            "params_flip_top_x_rms": flip_top, "params_worst_above_floor_lr": worst_strong,
+            "detections_max_dist": float(dist.max()), "detections_in_place":
+            float(in_place.float().mean()), "step_ms": [r.get("step_ms") for r in ranks],
+            "counts": det2["count"].tolist(), "counts_one_rank": det1["count"].tolist()}
+
+
+def drive_data_parallel(card, counters, tmp: Path, entry: dict, full: dict,
+                        cal_state) -> dict:
+    """Phase 4g: data parallelism on the one card. (a) the recipe through
+    ``cli.train --data_parallel 1`` (a one-rank NCCL group) beside the same
+    run without it; (b) two gloo ranks sharing the card against the 1-rank
+    step; (c) the sliding window at config #3 over a mesh of two shards on
+    the card against the unsharded detector, and ``cli.predict -sw 1
+    --sw_data_parallel 1``; (d) the ConvNet's dropout draws at W ranks."""
+    t_phase = time.perf_counter()
+    out = {"k1": {}, "k2": {}, "k3": {}, "q1": {}, "timing": {}, "mismatches": 0}
+    failed = []
+
+    def expect(cond, message: str) -> None:
+        """A check of this phase: every one is made, and any failure fails the
+        phase at its end."""
+        if not cond:
+            log(f"CHECK FAILED: {message}")
+            failed.append(message)
+
+    # (a) the recipe with and without a one-rank NCCL group
+    args = ["-d", str(entry["root"]), *recipe.TRAIN_FLAGS, "-mi", str(RECIPE_STEPS), "-ld",
+            str(tmp / "dp_logs"), "--device", "cuda"]
+    runs = {}
+    # cuDNN's default algorithms need not repeat a run bit for bit (its
+    # weight gradients sum in any order): the comparison takes deterministic ones
+    torch.backends.cudnn.deterministic = True
+    for name, extra in (("plain", []), ("data_parallel", ["--data_parallel", "1"]),
+                        ("plain again", [])):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        result = train_cli.main([*args, "-en", name.replace(" ", "_"), *extra])
+        fit_s = time.perf_counter() - t0
+        epochs = result["timings"]["epochs"]
+        runs[name] = {"losses": [v for e in epochs for v in e["train_losses"]],
+                      "val": [h["avg_val_loss"] for h in result["history"]],
+                      "ms_per_step": [e["train_s"] / e["steps"] * 1e3 for e in epochs],
+                      "fit_s": fit_s, "launches": [c.launches for c in counters]}
+        if name == "data_parallel":
+            expect(torch.distributed.is_initialized()
+                  and torch.distributed.get_backend() == "nccl"
+                  and torch.distributed.get_world_size() == 1,
+                  "cli.train --data_parallel 1 did not run over a one-rank NCCL group")
+    torch.backends.cudnn.deterministic = False
+    plain, dp, again = runs["plain"], runs["data_parallel"], runs["plain again"]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"], plain["losses"]))
+    noise = max(abs(a - b) / abs(b) for a, b in zip(again["losses"], plain["losses"]))
+    log(f"cli.train without --data_parallel twice (cuDNN deterministic): training losses "
+        f"{'bit-equal' if noise == 0 else f'differ by up to {noise:.2e} (relative)'}")
+    log(f"cli.train (the recipe, {RECIPE_STEPS} steps) with --data_parallel 1 over a "
+        f"one-rank NCCL group and without it: training losses "
+        f"{'bit-equal' if diff == 0 else f'largest relative difference {diff:.2e}'}; "
+        f"avg_val_loss {[round(v, 5) for v in dp['val']]} / {[round(v, 5) for v in plain['val']]}; "
+        f"K1 launches {dp['launches'][0]} / {plain['launches'][0]}; trainer ms per step by "
+        f"epoch {[round(v, 3) for v in dp['ms_per_step']]} / "
+        f"{[round(v, 3) for v in plain['ms_per_step']]}; cli.train {dp['fit_s']:.3f} / "
+        f"{plain['fit_s']:.3f} s [{card}]")
+    # bit-equal where the run repeats bit for bit; else within its own spread
+    expect(dp["losses"] == plain["losses"] if noise == 0 else diff <= 2 * noise,
+           f"the one-rank data-parallel run's losses differ from the plain run's by {diff:.2e} "
+           f"(the plain runs' spread {noise:.2e})")
+    expect(dp["launches"] == plain["launches"] and dp["launches"][0] > 0,
+          f"K1-K3 launches {dp['launches']} with --data_parallel 1, {plain['launches']} without")
+    out["k1"]["cli.train --data_parallel 1"] = dp["launches"][0]
+    out["q1"]["cli.train --data_parallel 1"] = dp["launches"][3]
+    # the bare gathered step at the recipe's configuration, with and without
+    # the mesh of one: the price of the collectives
+    config = SSD3DConfig.from_json_dict(
+        json.loads((Path(entry["last"]) / "meta.json").read_text())["config"])
+    model, priors = SSD3D(config), torch.from_numpy(model_priors(config)).cuda()
+    dm_ = SyntheticDataModule(entry["root"], n_classes=1, batch_size=8, max_objects=16)
+    dm_.setup("fit")
+    data = {k: torch.from_numpy(v).cuda() for k, v in dm_.materialize(dm_.trainsubs).items()
+            if isinstance(v, np.ndarray)}
+    mesh = make_mesh(device="cuda")
+    augment = AugmentConfig.from_names(["flip", "rotate90", "zoom"])
+    idx = torch.arange(8, device="cuda")
+    bare = {}
+    for name in ("plain", "mesh of one", "mesh of one", "plain"):
+        step = (make_gathered_train_step(config, model, priors, augment,
+                                         hard_negative_mining=True) if name == "plain" else
+                make_sharded_gathered_train_step(config, model, priors, mesh, augment,
+                                                 hard_negative_mining=True))
+        state = create_train_state(config, seed=0, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(2):
+            state, _m = step(state, data, idx, gen)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            state, _m = step(state, data, idx, gen)
+        end.record()
+        torch.cuda.synchronize()
+        bare.setdefault(name, []).append(start.elapsed_time(end) / 10)
+    # the collectives of one step over the mesh of one
+    reduce, calls = torch.distributed.all_reduce, []
+
+    def counted(tensor, *args, **kwargs):
+        calls.append(tensor.numel())
+        return reduce(tensor, *args, **kwargs)
+
+    step = make_sharded_gathered_train_step(config, model, priors, mesh, augment,
+                                            hard_negative_mining=True)
+    torch.distributed.all_reduce = counted
+    try:
+        state, _m = step(state, data, idx, gen)
+    finally:
+        torch.distributed.all_reduce = reduce
+    # one small all-reduce alone: its host time a call and the card's
+    small = torch.ones(64, device="cuda")
+    for _ in range(10):
+        torch.distributed.all_reduce(small)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        torch.distributed.all_reduce(small)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    card_us = cuda_ms(lambda: torch.distributed.all_reduce(small), iters=200) * 1e3
+    log(f"one step over the mesh of one makes {len(calls)} all-reduces of {sum(calls):,} "
+        f"elements in all (the largest {max(calls):,}: the gradients); one all-reduce of 64 "
+        f"floats over the one-rank NCCL group takes {host_us:.1f} us of host time a call and "
+        f"{card_us:.1f} us a call back to back on the card (CUDA events) [{card}]")
+    out["timing"]["all_reduces_a_step"] = {"calls": len(calls), "elements": sum(calls),
+                                           "host_us_a_call": host_us, "card_us_a_call": card_us}
+    log(f"bare gathered step at the recipe's configuration (float32 64^3 width 1.0, batch 8): "
+        f"{', '.join(f'{k} {[round(v, 3) for v in ms]} ms' for k, ms in bare.items())} "
+        f"(CUDA events, 10 steps a round, rounds in the order plain, mesh, mesh, plain; the "
+        f"mesh's steps sum the BN statistics, the loss's positives and the gradients over "
+        f"NCCL) [{card}]")
+    out["timing"]["nccl_one_rank"] = {
+        "losses_bit_equal": dp["losses"] == plain["losses"], "losses_rel_diff": diff,
+        "plain_runs_rel_diff": noise,
+        "trainer_ms_per_step": {"data_parallel": dp["ms_per_step"],
+                                "plain": plain["ms_per_step"]},
+        "bare_step_ms": bare}
+    torch.distributed.destroy_process_group()
+    del data, state, step
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks sharing the card, against the 1-rank step
+    two = drive_two_ranks(card, tmp, expect)
+    out["k1"]["two gloo ranks, with_detections step (per rank)"] = two.pop("k1")
+    out["timing"]["two_ranks"] = two
+    torch.cuda.empty_cache()
+
+    # (c) the sliding window at config #3 over a mesh of two shards on the card
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    volumes = torch.randn((4, *FULL_VOLUME, 1), generator=gen, device="cuda")
+    mesh2 = ("cuda:0", "cuda:0")
+    for name in ("off", "both"):
+        config = SSD3DConfig.create(**HEADLINE, **FLAG_SETTINGS[name])
+        state = create_train_state(config, device="cuda", state_dict=cal_state)
+        for v in (1, 4):
+            key = f"{name} V={v}"
+            x = volumes[0] if v == 1 else volumes
+            plain_run = sliding_window.make_sliding_window_detector(config, FULL_VOLUME,
+                                                                    volume_batch=v)
+            run = sliding_window.make_sliding_window_detector(config, FULL_VOLUME,
+                                                              volume_batch=v, mesh=mesh2)
+            ref = plain_run(state, x)
+            run(state, x)  # warm-up: cuDNN's algorithm choice at the shard's batch
+            torch.cuda.synchronize()
+            with ExitStack() as stack:
+                calls = stack.enter_context(recorded_nms())
+                taps = (stack.enter_context(on_first_forward(SSD3D, tapped_kernel_operands))
+                        if name == "both" else None)
+                for c in counters:
+                    c.launches = 0
+                det = run(state, x)
+                torch.cuda.synchronize()
+                launches = [c.launches for c in counters]
+            chunks = -(-run.n_patches * v // run.patch_batch)
+            stitch = 2 if v % 2 == 0 else 1
+            expect(launches[0] == 2 * chunks + stitch == len(calls),
+                  f"sliding window mesh [{key}]: K1 launched {launches[0]} times for {chunks} "
+                  f"chunk(s) in 2 shards and {stitch} stitch shard(s)")
+            out["mismatches"] += check_recorded(f"sliding window mesh [{key}]", calls)
+            if name == "both":
+                dw, tail = taps[0]
+                tail_x, tail_layers, tail_emit = tail[0]
+                specs = [(*layer["pw_w"].shape, int(layer["stride"])) for layer in tail_layers]
+                k3_plan = plan_tail(tail_x.dtype, tuple(tail_x.shape), specs)
+                expect(launches[1] == 2 * chunks and launches[2] == 2 * chunks * k3_plan.launches,
+                      f"sliding window mesh [{key}]: K2 {launches[1]}, K3 {launches[2]} "
+                      f"launches for {chunks} chunk(s) in 2 shards")
+                out["dw_check"] = merge_dw_checks(out.get("dw_check"), compare_dw(
+                    f"sliding window mesh [{key}], layer 3", *dw[0]))
+                out["tail_check"] = merge_tail_checks(out.get("tail_check"), compare_tail_exact(
+                    f"sliding window mesh [{key}], layers 4-7", tail_x, tail_layers, tail_emit))
+            out["k1"][f"sliding window mesh {key}"] = launches[0]
+            out["k2"][f"sliding window mesh {key}"] = launches[1]
+            out["k3"][f"sliding window mesh {key}"] = launches[2]
+            out["q1"][f"sliding window mesh {key}"] = launches[3]
+            equal = all(torch.equal(det[k], ref[k]) for k in ref)
+            score_diff = float((det["scores"] - ref["scores"]).abs().max())
+            expect(equal, f"sliding window mesh [{key}]: detections differ from the unsharded "
+                         f"detector's (largest score difference {score_diff:.3e}, counts "
+                         f"{det['count'].tolist()} / {ref['count'].tolist()})")
+            rates = {}
+            iters = 10 if v == 1 else 4
+            for label, fn in (("unsharded", plain_run), ("mesh", run), ("mesh", run),
+                              ("unsharded", plain_run)):
+                fn(state, x)["count"].cpu()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    res = fn(state, x)
+                res["count"].cpu()
+                rates.setdefault(label, []).append(v * iters / (time.perf_counter() - t0))
+            out["timing"][f"sliding_window {key}"] = {"volumes_per_s": rates,
+                                                      "launches": launches}
+            log(f"sliding window mesh {mesh2} [{key}] {FULL_VOLUME}: patch batches of "
+                f"{run.patch_batch} in 2 shards of {run.patch_batch // 2}, {chunks} chunk(s); "
+                f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}; detections "
+                f"equal to the unsharded detector's ({det['count'].tolist()}); volumes/s "
+                f"{', '.join(f'{k} {[round(r, 2) for r in rs]}' for k, rs in rates.items())} "
+                f"(host clock, in turns unsharded, mesh, mesh, unsharded) [{card}]")
+        del state
+    del volumes
+    torch.cuda.empty_cache()
+    # cli.predict -sw 1 --sw_data_parallel 1 on phase 4e's patch checkpoint
+    single = tmp / "patch_preds" / "validation_set" / "min_score_0.0"
+    with recorded_nms() as calls:
+        for c in counters:
+            c.launches = 0
+        rc = predict_cli.main(["-d", str(full["patch_root"]), "-m", str(full["patch_last"]),
+                               "-o", str(tmp / "patch_preds_dp"), *recipe.PREDICT_FLAGS,
+                               "-sw", "1", "--sw_data_parallel", "1", "--device", "cuda"])
+        launches = [c.launches for c in counters]
+    sharded = tmp / "patch_preds_dp" / "validation_set" / "min_score_0.0"
+    names = sorted(p.name for p in single.iterdir() if p.suffix in (".json", ".csv"))
+    same = [(sharded / n).read_bytes() == (single / n).read_bytes() for n in names]
+    out["mismatches"] += check_recorded("cli.predict -sw 1 --sw_data_parallel 1", calls)
+    log(f"cli.predict -sw 1 --sw_data_parallel 1 over {torch.cuda.device_count()} visible "
+        f"card(s): {sum(same)} of {len(names)} .json/.csv files byte-equal to phase 4e's run "
+        f"without the flag; K1 {launches[0]} launches")
+    expect(rc == 0 and names and all(same),
+          "cli.predict --sw_data_parallel 1 wrote other files than the run without it")
+    out["k1"]["cli.predict -sw 1 --sw_data_parallel 1"] = launches[0]
+    out["q1"]["cli.predict -sw 1 --sw_data_parallel 1"] = launches[3]
+
+    # (d) the ConvNet's dropout under a mesh: each rank draws the global
+    # batch's mask, W times its own rows', at every dropout layer
+    cfg = SSD3DConfig.create(**CONVNET)
+    convnet = SSD3D(cfg).cuda().train()
+    shapes = []
+    handles = [mod.register_forward_hook(lambda mod, a, o: shapes.append(tuple(o.shape)))
+               for mod in convnet.modules() if type(mod).__name__ == "ConvNormActBlock"]
+    with torch.no_grad():
+        convnet(train_batch(8, torch.Generator(device="cuda").manual_seed(4))["image"].to(
+            cfg.compute_dtype), generator=torch.Generator(device="cuda").manual_seed(5))
+    for handle in handles:
+        handle.remove()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    draw_ms = {}
+    for w in DROPOUT_WORLDS:
+        draw_ms[w] = cuda_ms(lambda: [torch.rand((s[0] * w, *s[1:]), generator=g, device="cuda")
+                                      for s in shapes], iters=5)
+    log(f"ConvNet dropout at 64^3, local batch 8: the masks of its {len(shapes)} dropout layers "
+        f"({sum(math.prod(s) for s in shapes):,} elements at W = 1) take "
+        f"{', '.join(f'{draw_ms[w]:.3f} ms at W = {w}' for w in DROPOUT_WORLDS)} a step on each "
+        f"rank (CUDA events) [{card}]")
+    out["timing"]["dropout_draw_ms"] = draw_ms
+    del convnet
+    torch.cuda.empty_cache()
+    log(f"data-parallel phase {time.perf_counter() - t_phase:.1f} s")
+    check(not failed, "phase 4g: " + "; ".join(failed))
+    return out
+
+
 def op_dispatch_us(fused, x1, card) -> dict:
     """Host microseconds a call that the registered op adds, per kernel at
     batch 1 on the operands of the fused path's forward: the wrapper (op
@@ -2379,6 +2917,10 @@ def main() -> int:
         full = drive_full_resolution(card, counters, cal_state, Path(tmp))
         # 4f. deployment: bundles, int8 and HTTP
         deploy = drive_deployment(card, counters + [qconv_cuda], cal_state, Path(tmp))
+        # 4g. data parallelism: a one-rank NCCL group, two gloo ranks, the
+        # sliding window over a mesh
+        dp = drive_data_parallel(card, counters + [qconv_cuda], Path(tmp), entry, full,
+                                 cal_state)
 
     # 5. times on the card. Each kernel, its plain version and (for K2) the
     # cuDNN sequence it replaces are timed twice: per call with CUDA events
@@ -2664,6 +3206,15 @@ def main() -> int:
     for i, kernel in enumerate(kernels):
         kernel["launches_bundle_path"] = {name: launches[i]
                                           for name, launches in deploy["launches"].items()}
+    # the data-parallel path (phase 4g): launches by run
+    kernels[0]["launches_data_parallel"] = dp["k1"]
+    kernels[1]["launches_data_parallel"] = dp["k2"]
+    kernels[2]["launches_data_parallel"] = dp["k3"]
+    kernels[0]["mismatches_data_parallel"] = dp["mismatches"]
+    kernels[0]["max_abs_err"] = (0.0 if mismatches + full["mismatches"] + dp["mismatches"] == 0
+                                 else 1.0)
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], dp["dw_check"][1])
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], dp["tail_check"][0])
     kernels[0]["op_dispatch_us_batch1"] = dispatch["K1"]
     kernels[1]["op_dispatch_us_batch1"] = dispatch["K2"]
     kernels[2]["op_dispatch_us_batch1"] = dispatch["K3"]
@@ -2695,7 +3246,9 @@ def main() -> int:
         "shape": "every conv of one int8 forward of the 96^3 model at batch 8 (sums over the "
                  "convs)",
     })
+    kernels[3]["launches_data_parallel"] = dp["q1"]
     log("deployment: " + json.dumps({**deploy["timing"], "card": card}))
+    log("data parallel: " + json.dumps({**dp["timing"], "card": card}))
     log("full resolution: " + json.dumps({**full["timing"], "card": card}))
     log("training: " + json.dumps({
         "step_ms": train["step_ms"], "eval_step_ms_batch8": train["eval_ms"],

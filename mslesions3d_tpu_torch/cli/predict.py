@@ -19,10 +19,10 @@ into the checkpoint's input size and stitched (``sliding_window.py``: K1
 on every chunk of patches and at the stitch); ``-vb N`` buffers N
 same-shape volumes and runs their patch grids in shared device batches. A
 float32 checkpoint is scored in IEEE float32: TF32 is off for convolutions
-and matmuls, as in training.
-
-Not ported yet: ``--sw_data_parallel`` (sliding-window patches over several
-cards; ROADMAP item 17b), which raises.
+and matmuls, as in training. ``--sw_data_parallel 1`` shards every chunk of
+sliding-window patches over all visible devices of ``--device``'s kind
+(``parallel.visible_devices``), as the JAX CLI shards over all chips; the
+files are those of the run without it.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from ..data.transforms import inverse_map_boxes
 from ..models.ssd3d import SSD3D, model_priors
 from ..ops import metrics as metrics_lib
 from ..ops.nms import detections_to_lists
+from ..parallel.mesh import visible_devices
 from ..sliding_window import make_sliding_window_detector
 from ..train.checkpoints import load_checkpoint
 from ..train.state import (create_train_state, eval_view, resolve_device,
@@ -88,7 +89,7 @@ def build_parser():
                         "stitching (default max(top_k // 2, 16))")
     p.add_argument("--sw_data_parallel", type=int, default=0,
                    help="sliding-window: shard patch batches over all "
-                        "visible cards (not ported yet: raises)")
+                        "visible cards (multi-card full-volume serving)")
     p.add_argument("--use_ema", type=int, default=1,
                    help="score the EMA weights when the checkpoint carries "
                         "them (training with --ema_decay > 0); 0 = raw params")
@@ -105,14 +106,6 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="where to predict: cuda (the card; raises without one) or cpu")
     return p
-
-
-def check_ported(sw_data_parallel=False) -> None:
-    """Raise for the JAX CLI's options that this package does not run yet."""
-    if sw_data_parallel:
-        raise NotImplementedError(
-            "--sw_data_parallel (sliding-window patches over several cards) is not ported "
-            "yet (ROADMAP item 17b)")
 
 
 def build_datamodule(args):
@@ -231,7 +224,7 @@ def save_subject_predictions(output_dir, subject, image_shape, boxes, labels, sc
 def predict_dataset(dataset, state, config, predict_subset="train", min_score=0.5,
                     top_k=100, output_dir=None, save_images=True,
                     sliding_window=False, overlap=0.25, max_overlap=None,
-                    volume_batch=1, per_patch_k=None, prefetch_depth=2):
+                    volume_batch=1, per_patch_k=None, prefetch_depth=2, mesh=None):
     """Run detection over a subset on the state's device; returns
     per-subject ragged results and their ground truth.
 
@@ -243,7 +236,8 @@ def predict_dataset(dataset, state, config, predict_subset="train", min_score=0.
     empty volumes whose results are dropped). ``max_overlap`` overrides the
     checkpoint's NMS suppression IoU. ``prefetch_depth`` assembles host
     batches (NIfTI load, box derivation) on a background thread while the
-    card runs (``utils/prefetch.py``); 0 disables it.
+    card runs (``utils/prefetch.py``); 0 disables it. ``mesh`` (a tuple of
+    devices) shards the sliding window's patches over them.
     """
     step = make_predict_step(config, SSD3D(config), model_priors(config),
                              min_score=min_score, top_k=top_k, max_overlap=max_overlap)
@@ -254,7 +248,8 @@ def predict_dataset(dataset, state, config, predict_subset="train", min_score=0.
         if key not in sw_detectors:
             sw_detectors[key] = make_sliding_window_detector(
                 config, key[0], overlap=overlap, min_score=min_score, top_k=top_k,
-                max_overlap=max_overlap, per_patch_k=per_patch_k, volume_batch=n_volumes)
+                max_overlap=max_overlap, per_patch_k=per_patch_k, volume_batch=n_volumes,
+                mesh=mesh)
         return sw_detectors[key](state, images)
 
     results, gt = {}, {}
@@ -357,7 +352,11 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device, "cli.predict")
     use_ieee_float32()
-    check_ported(bool(args.sw_data_parallel))
+    mesh = None
+    if args.sw_data_parallel:
+        mesh = visible_devices(device)
+        print(f"[predict] sliding-window patches sharded over {len(mesh)} device(s): "
+              f"{', '.join(str(d) for d in mesh)}")
     np.random.seed(PREDICT_SEED)
 
     subsets = (["train", "validation", "test"] if args.predict_subset == "all"
@@ -384,7 +383,7 @@ def main(argv=None):
             output_dir, bool(args.save_images),
             sliding_window=bool(args.sliding_window), overlap=args.overlap,
             max_overlap=args.max_overlap, volume_batch=args.volume_batch,
-            per_patch_k=args.per_patch_k, prefetch_depth=args.prefetch,
+            per_patch_k=args.per_patch_k, prefetch_depth=args.prefetch, mesh=mesh,
         )
         for min_iou in (0.5, 0.1):
             m = compute_subjects_mAP(results, gt, config.n_classes, min_iou, output_dir)

@@ -11,9 +11,14 @@ padding), --hard_negative_mining, --patch_size (train on patches cropped on
 the device from full-resolution volumes, validated on whole volumes
 through the sliding window; score with ``cli.predict -sw 1``),
 --device_boxes (GT boxes by connected components on the device), and the
-JAX package's --data_parallel and --spatial_shards, which raise until
-ROADMAP item 17b is ported. A float32 config trains in IEEE float32: TF32 is
-off for convolutions and matmuls (``train.state.use_ieee_float32``).
+JAX package's --data_parallel and --spatial_shards. ``--data_parallel 1``
+trains over a data mesh, one rank a card: under ``torchrun --nproc_per_node
+N -m mslesions3d_tpu_torch.cli.train --data_parallel 1 ...`` each rank takes
+``cuda:LOCAL_RANK`` and its rows of every global batch (``-b`` is the global
+batch), rank 0 writes; without a launcher it is a world of one.
+``--spatial_shards`` > 1 raises until ROADMAP item 17c is ported. A float32
+config trains in IEEE float32: TF32 is off for convolutions and matmuls
+(``train.state.use_ieee_float32``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 from ..data.augment import AugmentConfig
 from ..data.datasets import LesionsDataModule, SyntheticDataModule
 from ..models.ssd3d import SSD3DConfig
+from ..parallel.multihost import initialize_multihost
 from ..train.loop import Trainer, TrainerConfig
 from ..train.state import resolve_device, use_ieee_float32
 
@@ -114,8 +120,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-MICRO-batch: with --hard_negative_mining the "
                         "3:1 negative ratio is mined within each micro-batch "
                         "(tests/test_grad_accum.py pins this)")
-    # the JAX package's parallel modes (not ported yet: > 0 / > 1 raise)
-    p.add_argument("--data_parallel", type=int, default=0)
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="1 = one rank a card over a data mesh (launch with torchrun "
+                        "--nproc_per_node N; without it a world of one); -b is the global "
+                        "batch")
     p.add_argument("--spatial_shards", type=int, default=1,
                    help="> 1 shards volume depth over that many devices "
                         "(not ported yet: raises)")
@@ -149,6 +157,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     resolve_device(args.device, "cli.train")
     use_ieee_float32()
+    if args.data_parallel:
+        # before the data module: under torchrun each rank takes its card first
+        initialize_multihost(device=args.device)
 
     try:
         layers = [int(x) for x in args.prediction_layers.split()]

@@ -289,9 +289,16 @@ def apply_augment(images, boxes, params: dict, config: AugmentConfig):
     return images, boxes
 
 
-def augment_batch(generator: torch.Generator, images, boxes, config: AugmentConfig):
-    """Draw each sample's parameters from ``generator`` and apply them."""
-    params = draw_augment_params(config, images.shape[0], images.shape[1:4], generator)
+def augment_batch(generator: torch.Generator, images, boxes, config: AugmentConfig,
+                  global_batch: int | None = None, rows=None):
+    """Draw each sample's parameters from ``generator`` and apply them. With
+    ``global_batch`` and ``rows`` (a data-parallel rank: slices of the global
+    batch) the parameters are drawn for the global batch and the images are
+    its ``rows``."""
+    params = draw_augment_params(config, images.shape[0] if global_batch is None else global_batch,
+                                 images.shape[1:4], generator)
+    if rows is not None:
+        params = {k: torch.cat([v[s] for s in rows]) for k, v in params.items()}
     return apply_augment(images, boxes, params, config)
 
 

@@ -68,10 +68,15 @@ def patch_starts_from_draws(draws: dict, vol_shape, patch, boxes, box_mask,
 
 
 def sample_patch_starts(generator: torch.Generator, vol_shape, patch, boxes, box_mask,
-                        pos_fraction: float = 0.7) -> torch.Tensor:
+                        pos_fraction: float = 0.7, global_batch: int | None = None,
+                        rows=None) -> torch.Tensor:
     """Random lesion-biased starts (B, 3): :func:`draw_patch_params`, then
-    :func:`patch_starts_from_draws`."""
-    draws = draw_patch_params(generator, boxes.shape[0])
+    :func:`patch_starts_from_draws`. With ``global_batch`` and ``rows`` (a
+    data-parallel rank: slices of the global batch) the draws are the global
+    batch's, and the boxes' samples are its ``rows``."""
+    draws = draw_patch_params(generator, boxes.shape[0] if global_batch is None else global_batch)
+    if rows is not None:
+        draws = {k: torch.cat([v[s] for s in rows]) for k, v in draws.items()}
     return patch_starts_from_draws(draws, vol_shape, patch, boxes, box_mask, pos_fraction)
 
 

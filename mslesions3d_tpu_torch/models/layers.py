@@ -18,6 +18,11 @@ In training every conv + BN + ReLU runs through :func:`conv_bn_relu_train`,
 in chunks of samples, keeping no float32 activation for the backward.
 :func:`checkpointed` runs a block with its activations recomputed in the
 backward pass rather than kept (the JAX package's ``remat``).
+
+Inside ``parallel.data_parallel(mesh)`` (a data-parallel train step) the
+training BatchNorm takes its statistics over the global batch, summed over
+the mesh's ranks, as the JAX package's sharded program does, and the
+ConvNet's dropout draws the global batch's mask and keeps this rank's rows.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.depthwise import fold_bn, fused_depthwise_bn_relu_cuda
+from ..parallel.collectives import all_reduce_sum, current_mesh, differentiable_all_reduce_sum
 
 INIT_SCHEMES = ("torch", "flax", "kaiming_relu")
 # standard deviation of a standard normal truncated to (-2, 2)
@@ -141,7 +147,20 @@ class BatchNorm3d(nn.Module):
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         dims = (0, 2, 3, 4)
-        if self.fast_variance:
+        mesh = current_mesh()
+        if mesh is not None:  # the global batch's statistics: sums over the ranks
+            count = x32.numel() // x32.shape[1] * mesh.size
+            c = x32.shape[1]
+            if self.fast_variance:
+                sums = differentiable_all_reduce_sum(
+                    torch.cat([x32.sum(dims), (x32 * x32).sum(dims)]), mesh) / count
+                mean = sums[:c]
+                var = torch.clamp(sums[c:] - mean * mean, min=0.0)
+            else:
+                mean = differentiable_all_reduce_sum(x32.sum(dims), mesh) / count
+                var = differentiable_all_reduce_sum(
+                    ((x32 - self._channel(mean)) ** 2).sum(dims), mesh) / count
+        elif self.fast_variance:
             mean = x32.mean(dims)
             var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
         else:
@@ -272,6 +291,13 @@ class _ConvBNReLU(torch.autograd.Function):
     forward, so the numbers do not depend on ``keep``. The running
     statistics move in the forward, unless the BN's ``update_stats`` is
     off.
+
+    Under a data mesh (``parallel.data_parallel``) every rank holds as many
+    samples, and the per-channel sums are summed over the ranks: the count
+    and sum of z (and the fast variance's sum of squares) in one reduction,
+    the centred sum of squares in a second, after the global mean; in the
+    backward the two sums of BN's gradient. The gradients of gamma and beta
+    stay this rank's sums: the step sums every gradient over the ranks.
     """
 
     @staticmethod
@@ -286,8 +312,9 @@ class _ConvBNReLU(torch.autograd.Function):
             z = torch.empty(shape, dtype=x.dtype, device=x.device, memory_format=fmt)
             for sl in chunks:
                 z[sl] = _conv(conv, x[sl], weight)
-        ctx.conv, ctx.bn, ctx.chunks = conv, bn, chunks
-        ctx.count = n * math.prod(spatial)
+        mesh = current_mesh()
+        ctx.conv, ctx.bn, ctx.chunks, ctx.mesh = conv, bn, chunks, mesh
+        ctx.count = n * math.prod(spatial) * (1 if mesh is None else mesh.size)
         dims = (0, 2, 3, 4)
         total = torch.zeros(c, dtype=torch.float32, device=x.device)
         squares = torch.zeros_like(total)
@@ -296,6 +323,10 @@ class _ConvBNReLU(torch.autograd.Function):
             total += z32.sum(dims)
             if bn.fast_variance:
                 squares += (z32 * z32).sum(dims)
+        if bn.fast_variance:
+            total, squares = all_reduce_sum([total, squares], mesh)
+        else:
+            (total,) = all_reduce_sum([total], mesh)
         mean = total / ctx.count
         if bn.fast_variance:
             raw_var = squares / ctx.count - mean * mean
@@ -303,6 +334,7 @@ class _ConvBNReLU(torch.autograd.Function):
             for sl in chunks:
                 centred = _chunk_z(conv, x, weight, z, sl).float() - bn._channel(mean)
                 squares += (centred * centred).sum(dims)
+            (squares,) = all_reduce_sum([squares], mesh)
             raw_var = squares / ctx.count
         var = torch.clamp(raw_var, min=0.0)
         if bn.update_stats:
@@ -335,8 +367,9 @@ class _ConvBNReLU(torch.autograd.Function):
             xhat, g = recompute(sl)
             sum_g += g.sum(dims)
             sum_gx += (g * xhat).sum(dims)
-        mean_g = bn._channel(sum_g / ctx.count)
-        mean_gx = bn._channel(torch.where(var_grad, sum_gx / ctx.count, 0.0))
+        all_g, all_gx = all_reduce_sum([sum_g, sum_gx], ctx.mesh)
+        mean_g = bn._channel(all_g / ctx.count)
+        mean_gx = bn._channel(torch.where(var_grad, all_gx / ctx.count, 0.0))
         scale = bn._channel(gamma.float() * rstd)
         need_x = ctx.needs_input_grad[0]
         grad_x = torch.empty_like(x) if need_x and len(ctx.chunks) > 1 else None
@@ -439,7 +472,9 @@ class ConvNormActBlock(nn.Module):
     scales it by 1 / (1 - rate), as flax's ``nn.Dropout``; the mask is a
     Bernoulli draw from the ``generator`` passed to ``forward`` (required
     when training with rate > 0), so the step's explicit generator decides
-    it.
+    it. Under a data mesh every rank draws the global batch's mask (its
+    ranks' rows in rank order) and keeps its own rows, so the W ranks
+    together drop what one device drops on the global batch.
     """
 
     def __init__(self, in_features: int, features: int, strides=1, dropout_rate: float = 0.1,
@@ -464,7 +499,12 @@ class ConvNormActBlock(nn.Module):
             if generator is None:
                 raise ValueError("ConvNormActBlock: dropout in training needs a generator")
             keep = 1.0 - self.dropout_rate
-            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            mesh, n = current_mesh(), x.shape[0]
+            if mesh is None:
+                mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            else:
+                mask = torch.rand((n * mesh.size, *x.shape[1:]), generator=generator,
+                                  device=x.device)[mesh.rank * n:(mesh.rank + 1) * n] < keep
             x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
         alpha = self.adn["A"].weight.to(x.dtype)
         return torch.where(x >= 0, x, alpha * x)

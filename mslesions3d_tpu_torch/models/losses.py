@@ -7,7 +7,11 @@ Counterpart of ``mslesions3d_tpu/models/losses.py``:
   summed and divided by the number of positives; hard-negative mining (the
   positives plus the ``neg_pos_ratio`` x n_pos hardest negatives of each
   image) and the softmax focal loss are options;
-* ``batch_mask`` drops padded batch rows from both terms.
+* ``batch_mask`` drops padded batch rows from both terms;
+* under a data mesh (``mesh``) both terms divide by the global batch's
+  positives, so each rank's terms are its share of the global loss: summed
+  over the ranks they are the loss of the global batch, and so are the
+  gradients.
 
 Ground truth arrives padded (B, M, 6) / (B, M) with a validity mask.
 """
@@ -17,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.boxes import center_to_corner
+from ..parallel.collectives import all_reduce_sum
 from ..ops.matching import match_priors_batch
 
 
@@ -32,7 +37,7 @@ def multibox_loss(predicted_locs, predicted_scores, gt_boxes, gt_labels, gt_mask
                   priors_center, threshold_lo: float, threshold_hi: float = 0.0,
                   batch_mask=None, *, soft: bool = False, neg_pos_ratio: int = 3,
                   hard_negative_mining: bool = False, focal_gamma: float = 0.0,
-                  focal_alpha: float = 0.25):
+                  focal_alpha: float = 0.25, mesh=None):
     """Returns (conf_loss, loc_loss), float32 scalars.
 
     focal_gamma > 0 switches the confidence term to the softmax focal loss
@@ -49,7 +54,7 @@ def multibox_loss(predicted_locs, predicted_scores, gt_boxes, gt_labels, gt_mask
         )
 
     positive = cls_targets > 0  # (B, P)
-    n_positives = positive.sum()
+    (n_positives,) = all_reduce_sum([positive.sum()], mesh)
 
     diff = (predicted_locs.float() - loc_targets).abs()
     loc_loss = (diff * positive[..., None]).sum() / torch.clamp(n_positives * 6, min=1)
@@ -81,7 +86,7 @@ def multibox_loss(predicted_locs, predicted_scores, gt_boxes, gt_labels, gt_mask
 
 def multibox_loss_from_config(config, predicted_locs, predicted_scores, gt_boxes, gt_labels,
                               gt_mask, priors_center, batch_mask=None,
-                              hard_negative_mining: bool = False):
+                              hard_negative_mining: bool = False, mesh=None):
     """multibox_loss with the config's thresholds and focal options."""
     if config.soft_matching:
         (lo, hi), soft = config.threshold, True
@@ -90,5 +95,5 @@ def multibox_loss_from_config(config, predicted_locs, predicted_scores, gt_boxes
     return multibox_loss(
         predicted_locs, predicted_scores, gt_boxes, gt_labels, gt_mask, priors_center,
         lo, hi, batch_mask, soft=soft, hard_negative_mining=hard_negative_mining,
-        focal_gamma=config.focal_gamma, focal_alpha=config.focal_alpha,
+        focal_gamma=config.focal_gamma, focal_alpha=config.focal_alpha, mesh=mesh,
     )

@@ -16,6 +16,16 @@ tensors both launch the kernel K1; on CPU tensors they take the plain NMS.
 The JAX package runs every chunk in one jitted scan; here the chunks loop
 in Python with the same work list, batches and results, and nothing waits
 for the card until the caller reads the output.
+
+With a ``mesh`` (a tuple of devices: every visible card, as the JAX
+package's data mesh over all devices) each chunk of patches is split into
+one contiguous shard a device; each device crops and runs its shard on its
+own copy of the weights, with its own per-patch ``detect_objects`` (K1 on
+that card), and the candidates come back to the first device in patch
+order. The stitch's NMS rows are split over the devices too when they
+divide (as the JAX package shards the stitch, ``sliding_window.py:229``).
+One process drives every card; a card's launches queue without waiting for
+the others'.
 """
 
 from __future__ import annotations
@@ -50,6 +60,14 @@ def patch_offsets(volume_shape, patch_size, overlap: float = 0.25) -> np.ndarray
     return np.asarray(offsets, np.int32)
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index: "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def make_sliding_window_detector(
     config: SSD3DConfig,
     volume_shape: tuple[int, int, int],
@@ -77,13 +95,15 @@ def make_sliding_window_detector(
     ``per_patch_k`` caps the detections a patch keeps before the stitch
     (default max(top_k // 2, 16)); it is announced when the detector is
     built. ``patch_forward`` is an optional (state, patches) -> (locs,
-    scores) in place of the model's eval forward. ``mesh`` (patches over
-    several cards) is not ported yet.
+    scores) in place of the model's eval forward. ``mesh``, a tuple of
+    devices, shards every chunk over them (``patch_batch`` is rounded up to
+    a multiple of their count, and an explicit one that does not divide
+    raises); the result is on the first and equals the unsharded detector's.
+    Each device's copy of the weights is made at the first call with a
+    state and kept while the caller passes the same state.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sliding-window detector over several cards (mesh) is not ported yet "
-            "(ROADMAP item 17b)")
+    shards = None if mesh is None else [_indexed(d) for d in mesh]
+    n_shards = 1 if shards is None else len(shards)
     if patch_forward is None:
         model = SSD3D(config)
 
@@ -97,6 +117,13 @@ def make_sliding_window_detector(
     total = n_volumes * n_patches
     if patch_batch is None:
         patch_batch = min(-(-total // 8) * 8, 32 if n_volumes == 1 else 128)
+        patch_batch = -(-patch_batch // n_shards) * n_shards
+    if patch_batch % n_shards:
+        raise ValueError(
+            f"patch_batch={patch_batch} not divisible by the mesh's "
+            f"{n_shards} devices"
+        )
+    shard_rows = patch_batch // n_shards
     # flat (volume, offset) work list, padded to whole device batches with
     # copies of the last patch of volume 0, masked out of the result
     n_padded = -(-total // patch_batch) * patch_batch
@@ -133,37 +160,68 @@ def make_sliding_window_detector(
                 patch_size=put(patch, torch.float32))
         return on_device[device]
 
+    copies = {"state": None, "on": {}}
+
+    def state_on(state, device):
+        """``state``'s params and BN statistics on ``device``, copied once a state."""
+        if device == state.device:
+            return state
+        if copies["state"] is not state:
+            copies["state"], copies["on"] = state, {}
+        if device not in copies["on"]:
+            copies["on"][device] = state.replace(
+                step=state.step.to(device),
+                params={k: v.to(device) for k, v in state.params.items()},
+                batch_stats={k: v.to(device) for k, v in state.batch_stats.items()})
+        return copies["on"][device]
+
+    def patch_candidates(state, volumes, chunk, device):
+        """The patches ``chunk`` of the work list on ``device``: their
+        detections in the volume's fractional coordinates, masked."""
+        t = tables(device)
+        scale = t["patch_size"] / t["vol_size"]
+        offs = t["offsets"][chunk]
+        patches = crop_patches(volumes, offs, patch, rows=t["vol_idx"][chunk])
+        locs, scores = patch_forward(state, patches)
+        det = detect_objects(locs, scores, t["priors"], n_classes=config.n_classes,
+                             min_score=min_score, max_overlap=max_overlap,
+                             top_k=per_patch_k)
+        # to the volume's fractional coordinates, clipped to it (the
+        # reference clips at save time, predict.py:195)
+        off_frac = offs.float() / t["vol_size"]
+        lo_c = det["boxes"][..., :3] * scale + off_frac[:, None, :]
+        hi_c = det["boxes"][..., 3:] * scale + off_frac[:, None, :]
+        k_slots = det["scores"].shape[-1]
+        det_valid = ((torch.arange(k_slots, device=device)[None, :] < det["count"][:, None])
+                     & t["valid"][chunk][:, None])
+        return (torch.clamp(torch.cat([lo_c, hi_c], dim=-1), 0.0, 1.0),
+                torch.where(det_valid, det["labels"], 0),
+                torch.where(det_valid, det["scores"], 0.0))
+
     @torch.no_grad()
     def run(state, volume) -> dict:
-        device = state.device
-        t = tables(device)
+        device = state.device if shards is None else shards[0]
         volumes = torch.as_tensor(volume).to(device)
         if volumes.ndim == 4:
             volumes = volumes[None]
         if tuple(volumes.shape[:4]) != (n_volumes, *volume_shape):
             raise ValueError(f"volumes {tuple(volumes.shape)} do not match the detector's "
                              f"{n_volumes} x {tuple(volume_shape)}")
-        scale = t["patch_size"] / t["vol_size"]
         boxes_l, labels_l, scores_l = [], [], []
-        for lo in range(0, n_padded, patch_batch):
-            chunk = slice(lo, lo + patch_batch)
-            offs = t["offsets"][chunk]
-            patches = crop_patches(volumes, offs, patch, rows=t["vol_idx"][chunk])
-            locs, scores = patch_forward(state, patches)
-            det = detect_objects(locs, scores, t["priors"], n_classes=config.n_classes,
-                                 min_score=min_score, max_overlap=max_overlap,
-                                 top_k=per_patch_k)
-            # to the volume's fractional coordinates, clipped to it (the
-            # reference clips at save time, predict.py:195)
-            off_frac = offs.float() / t["vol_size"]
-            lo_c = det["boxes"][..., :3] * scale + off_frac[:, None, :]
-            hi_c = det["boxes"][..., 3:] * scale + off_frac[:, None, :]
-            boxes_l.append(torch.clamp(torch.cat([lo_c, hi_c], dim=-1), 0.0, 1.0))
-            k_slots = det["scores"].shape[-1]
-            det_valid = ((torch.arange(k_slots, device=device)[None, :] < det["count"][:, None])
-                         & t["valid"][chunk][:, None])
-            scores_l.append(torch.where(det_valid, det["scores"], 0.0))
-            labels_l.append(torch.where(det_valid, det["labels"], 0))
+        if shards is None:
+            for lo in range(0, n_padded, patch_batch):
+                b, lab, sc = patch_candidates(state, volumes, slice(lo, lo + patch_batch), device)
+                boxes_l.append(b)
+                labels_l.append(lab)
+                scores_l.append(sc)
+        else:
+            on = {d: (state_on(state, d), volumes.to(d)) for d in dict.fromkeys(shards)}
+            for lo in range(0, n_padded, patch_batch):
+                for i, d in enumerate(shards):
+                    part = slice(lo + i * shard_rows, lo + (i + 1) * shard_rows)
+                    for out, v in zip((boxes_l, labels_l, scores_l),
+                                      patch_candidates(*on[d], part, d)):
+                        out.append(v.to(device))
         # (padded patches, K, ...) -> drop the padding -> (V, per-volume candidates, ...)
         k_slots = boxes_l[0].shape[1]  # detect_objects may return < per_patch_k
         per_vol = n_patches * k_slots
@@ -183,9 +241,17 @@ def make_sliding_window_detector(
             cand_scores.append(c_scores)
             cand_boxes.append(torch.gather(boxes, 1, c_idx[..., None].expand(-1, -1, 6)))
         cm = config.n_classes - 1
-        cand_boxes = torch.stack(cand_boxes, dim=1).reshape(n_volumes * cm, k, 6)
+        cand_boxes = torch.stack(cand_boxes, dim=1).reshape(n_volumes * cm, k, 6).contiguous()
         cand_scores = torch.stack(cand_scores, dim=1).reshape(n_volumes * cm, k)
-        keep = greedy_nms_cuda(cand_boxes.contiguous(), cand_scores > min_score, max_overlap)
+        cand_valid = cand_scores > min_score
+        if shards is not None and (n_volumes * cm) % n_shards == 0:
+            rows = n_volumes * cm // n_shards
+            keep = torch.cat([
+                greedy_nms_cuda(cand_boxes[i * rows:(i + 1) * rows].to(d),
+                                cand_valid[i * rows:(i + 1) * rows].to(d), max_overlap).to(device)
+                for i, d in enumerate(shards)])
+        else:
+            keep = greedy_nms_cuda(cand_boxes, cand_valid, max_overlap)
         return select_detections(cand_boxes, cand_scores, keep, n_classes=config.n_classes,
                                  top_k=top_k)
 

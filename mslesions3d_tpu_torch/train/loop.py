@@ -36,14 +36,30 @@ epochs (``patch_val_full_volume``) every validation volume is also scored
 whole through the sliding window (``sliding_window.py``), logged as
 ``mAP/validation_full_*``; the crop's loss stays the checkpoint monitor.
 
-Not ported yet (ROADMAP item 17b): ``data_parallel`` and ``spatial_shards >
-1``; each raises ``NotImplementedError``.
+``data_parallel`` trains over a data mesh (``parallel.make_mesh``: one
+rank a card, under ``torchrun``, or a world of one without it), as the JAX
+package's data mesh does. The dataset is sharded over the ranks' cards
+(``n_local = ceil(n_train / W)`` volumes a rank, padded with wrap-around
+duplicates; each rank materializes only its shard) and every epoch each
+rank shuffles its shard, from the JAX package's index stream; with
+``grad_accum > 1`` or without the cache, every rank streams its rows of each
+global batch. A batch (or micro-batch) that does not divide over the ranks
+raises before anything is loaded. Validation streams
+the same way; its losses are the global batch's and the detections and
+ground truth of every rank are gathered for the host mAP. Rank 0 alone
+writes checkpoints, ``metrics.jsonl``, TensorBoard and the printed lines;
+every rank resumes from the same checkpoint, and the steps keep the states
+equal, so early stopping, ``max_steps`` and the non-finite abort end every
+rank on the same step (the decision to stop is rank 0's, broadcast).
+``spatial_shards > 1`` is not ported yet (ROADMAP item 17c) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -53,6 +69,8 @@ from ..data.prefetch import prefetch_batches
 from ..models.ssd3d import SSD3D, SSD3DConfig, model_priors
 from ..ops import metrics as metrics_lib
 from ..ops.nms import detections_to_lists
+from ..parallel.collectives import broadcast, gather_rows
+from ..parallel.mesh import local_row_runs, make_mesh, replicate, shard_batch
 from ..sliding_window import make_sliding_window_detector
 from .checkpoints import CheckpointManager, load_checkpoint
 from .logging import MetricsLogger
@@ -61,6 +79,7 @@ from .steps import (
     make_eval_step,
     make_gathered_eval_step,
     make_gathered_train_step,
+    make_sharded_gathered_train_step,
     make_train_step,
 )
 
@@ -82,8 +101,10 @@ class TrainerConfig:
     save_top_k: int = 3
     seed: int = 970205
     use_wandb: bool = False
-    data_parallel: bool = False  # not ported yet: raises (ROADMAP item 17b)
-    spatial_shards: int = 1  # > 1 not ported yet: raises (ROADMAP item 17b)
+    # one rank a card over a data mesh (parallel/mesh.py); a world of one
+    # outside torchrun
+    data_parallel: bool = False
+    spatial_shards: int = 1  # > 1 not ported yet: raises (ROADMAP item 17c)
     # train on random lesion-biased patches of config.input_size cropped on
     # the device from full-resolution volumes (data/patches.py); validation
     # uses a deterministic lesion-centred crop. The datamodule must yield
@@ -118,9 +139,23 @@ class TrainerConfig:
 
 
 def _check_ported(cfg: TrainerConfig) -> None:
-    if cfg.data_parallel or cfg.spatial_shards > 1:
+    if cfg.spatial_shards > 1:
         raise NotImplementedError(
-            "data_parallel and spatial_shards > 1 are not ported yet (ROADMAP item 17b)")
+            "spatial_shards > 1 (volume depth sharded over cards) is not ported yet "
+            "(ROADMAP item 17c)")
+
+
+class _NoLogger:
+    """MetricsLogger's place on the ranks other than 0, which write nothing."""
+
+    def log(self, metrics: dict, step: int):
+        pass
+
+    def log_histograms(self, tree: dict, step: int, prefix: str = "epoch/"):
+        pass
+
+    def close(self):
+        pass
 
 
 def _host(value):
@@ -185,29 +220,41 @@ class Trainer:
         """
         cfg = self.cfg
         _check_ported(cfg)
+        mesh = make_mesh(device=cfg.device) if cfg.data_parallel else None
+        lead = mesh is None or mesh.rank == 0  # the rank that writes and prints
+        verbose = cfg.verbose and lead
+        if mesh is not None and cfg.verbose:
+            print(f"[mesh] {mesh.describe()}", flush=True)
         model = SSD3D(config)
         priors = model_priors(config)
-        state = create_train_state(config, seed=cfg.seed, device=cfg.device)
+        state = create_train_state(config, seed=cfg.seed,
+                                   device=cfg.device if mesh is None else mesh.device)
         device = state.device
         start_epoch = 0
         if resume:
             _, state, meta = load_checkpoint(resume, state_template=state)
             start_epoch = meta["extra"].get("epoch", 0) + 1
-            if cfg.verbose:
+            if verbose:
                 print(f"[resume] from {resume} at step {int(state.step)}")
+        grad_accum = max(1, int(cfg.grad_accum))
+        if mesh is not None:
+            state = replicate(state, mesh)
+            # every path shards each global batch: one that does not divide raises now
+            local_row_runs(datamodule.batch_size, mesh, grad_accum)
 
         kw = dict(hard_negative_mining=cfg.hard_negative_mining,
-                  grad_accum=max(1, int(cfg.grad_accum)), patch_training=cfg.patch_training,
+                  grad_accum=grad_accum, patch_training=cfg.patch_training,
                   patch_pos_fraction=cfg.patch_pos_fraction)
         instr_kw = dict(kw, with_detections=True,
                         return_grads=cfg.grad_hist_every_n_steps > 0)
         eval_kw = dict(with_detections=True, hard_negative_mining=cfg.hard_negative_mining,
                        patch_training=cfg.patch_training)
-        train_step = make_train_step(config, model, priors, augment, **kw)
+        train_step = make_train_step(config, model, priors, augment, mesh=mesh, **kw)
         # instrumented variant: detections of the training forward (train
         # metric epochs) and the raw gradients (TB histograms)
-        train_step_instr = make_train_step(config, model, priors, augment, **instr_kw)
-        eval_step = make_eval_step(config, model, priors, **eval_kw)
+        train_step_instr = make_train_step(config, model, priors, augment, mesh=mesh,
+                                           **instr_kw)
+        eval_step = make_eval_step(config, model, priors, mesh=mesh, **eval_kw)
 
         # ---- data path ----
         # The dataset on the device when it fits: materialize once, copy
@@ -220,7 +267,35 @@ class Trainer:
             hasattr(datamodule, a) for a in ("materialize", "trainsubs", "testsubs")
         )  # duck-typed custom datamodules stream
         materialize_s = 0.0
-        if cfg.device_data_cache and can_materialize:
+        sharded_cache = False
+        if mesh is not None:
+            # the dataset sharded over the ranks' cards: rank r holds the
+            # padded rows [r n_local, (r + 1) n_local), materialized alone
+            B, n_train = datamodule.batch_size, len(getattr(datamodule, "trainsubs", ()))
+            why_not = ("the data module cannot materialize" if not can_materialize
+                       else "device_data_cache is off" if not cfg.device_data_cache
+                       else f"fewer than {B} training volumes" if n_train < B
+                       else f"grad_accum={grad_accum} (micro-batches span the shards)"
+                       if grad_accum > 1 and mesh.size > 1 else None)
+            if why_not is None:
+                n_local = -(-n_train // mesh.size)
+                mine = [datamodule.trainsubs[i % n_train]
+                        for i in range(mesh.rank * n_local, (mesh.rank + 1) * n_local)]
+                t_data = time.perf_counter()
+                host_train = datamodule.materialize(mine)
+                materialize_s = time.perf_counter() - t_data
+                nbytes = sum(v.nbytes for v in host_train.values() if isinstance(v, np.ndarray))
+                if nbytes <= cfg.device_cache_max_bytes:
+                    train_data = {k: torch.from_numpy(v).to(device)
+                                  for k, v in host_train.items() if isinstance(v, np.ndarray)}
+                    sharded_cache = True
+                else:
+                    why_not = f"a shard of {nbytes / 2**20:.0f} MiB is over the cache's cap"
+            if verbose:
+                print(f"[data] sharded device cache: {n_local} volumes a rank x {mesh.size} "
+                      f"ranks ({n_train} train volumes)" if sharded_cache else
+                      f"[data] streaming each rank's rows of every batch: {why_not}")
+        elif cfg.device_data_cache and can_materialize:
             t_data = time.perf_counter()
             host_train = datamodule.materialize(datamodule.trainsubs)
             host_val = datamodule.materialize(datamodule.testsubs)
@@ -245,12 +320,17 @@ class Trainer:
                 val_valid = val_rows < n_val
                 val_rows = np.minimum(val_rows, n_val - 1)
                 val_on_device = on_device({"rows": val_rows, "valid": val_valid})
-                if cfg.verbose:
+                if verbose:
                     print(f"[data] device-resident cache: {n_train} train / {n_val} val "
                           f"volumes, {nbytes / 2**20:.0f} MiB on {device}")
             else:
                 host_val = None
-        if train_data is not None:
+        if sharded_cache:
+            train_step_g = make_sharded_gathered_train_step(config, model, priors, mesh, augment,
+                                                            **kw)
+            train_step_instr_g = make_sharded_gathered_train_step(config, model, priors, mesh,
+                                                                  augment, **instr_kw)
+        elif train_data is not None:
             train_step_g = make_gathered_train_step(config, model, priors, augment, **kw)
             train_step_instr_g = make_gathered_train_step(config, model, priors, augment,
                                                           **instr_kw)
@@ -269,12 +349,26 @@ class Trainer:
 
         sw_val_on = cfg.patch_training and cfg.patch_val_full_volume
 
-        logger = MetricsLogger(cfg.logdir, cfg.experiment_name, cfg.use_wandb,
-                               wandb_config=config.to_json_dict())
-        ckpt = CheckpointManager(
-            logger.logdir / "checkpoints", monitor="avg_val_loss",
-            mode="min", save_top_k=cfg.save_top_k,
-        )
+        def record(det, boxes, labels, box_mask, batch_mask, prefix, accum):
+            """Queue a batch for the epoch's detection metrics; under a mesh
+            every rank's rows are gathered first, and rank 0 keeps them."""
+            if mesh is not None:
+                rows = gather_rows({**{f"det.{k}": v for k, v in det.items()}, "boxes": boxes,
+                                    "labels": labels, "box_mask": box_mask,
+                                    "batch_mask": batch_mask}, mesh)
+                det = {k[4:]: v for k, v in rows.items() if k.startswith("det.")}
+                boxes, labels, box_mask, batch_mask = (
+                    rows[k] for k in ("boxes", "labels", "box_mask", "batch_mask"))
+            if lead:
+                self._detection_metrics(det, boxes, labels, box_mask, batch_mask, prefix, accum)
+
+        checkpoint_dir = Path(cfg.logdir) / cfg.experiment_name / "checkpoints"
+        logger, ckpt = _NoLogger(), None
+        if lead:
+            logger = MetricsLogger(cfg.logdir, cfg.experiment_name, cfg.use_wandb,
+                                   wandb_config=config.to_json_dict())
+            ckpt = CheckpointManager(checkpoint_dir, monitor="avg_val_loss", mode="min",
+                                     save_top_k=cfg.save_top_k)
         _, schedule = make_optimizer(config.lr, config.scheduler, t_max=config.t_max)
 
         best_val = float("inf")
@@ -306,7 +400,18 @@ class Trainer:
                 accum = {"train": [], "val": [], "val_full": []}
                 t0 = time.perf_counter()
                 train_losses = []
-                if train_data is not None:
+                if sharded_cache:
+                    # each rank shuffles its own shard: one permutation a rank,
+                    # drawn in rank order from the epoch's stream, block r of
+                    # each global index vector being rank r's (the JAX
+                    # package's sharded-cache stream)
+                    b_local = datamodule.batch_size // mesh.size
+                    rg = np.random.default_rng((cfg.seed or 0) + epoch)
+                    perms = [rg.permutation(n_local) for _ in range(mesh.size)]
+                    perm = torch.from_numpy(perms[mesh.rank]).to(device)
+                    batches = [perm[s * b_local:(s + 1) * b_local]
+                               for s in range(n_local // b_local)]
+                elif train_data is not None:
                     # device-resident path: shuffle indices on the host, gather
                     # on the device. The permutation goes to the device once an
                     # epoch: a copy from pageable host memory waits for the
@@ -317,11 +422,12 @@ class Trainer:
                     batches = [perm[i:i + B] for i in range(0, n_train - B + 1, B)]
                 else:
                     # streaming path: host batch assembly and the copy to the
-                    # device overlap the previous step (the DataLoader analog)
-                    batches = prefetch_batches(
-                        (array_batch(b) for b in datamodule.train_batches(epoch=epoch)),
-                        prefetch=2, device=device,
-                    )
+                    # device overlap the previous step (the DataLoader analog);
+                    # under a mesh each rank keeps its rows of every batch
+                    host = (array_batch(b) for b in datamodule.train_batches(epoch=epoch))
+                    if mesh is not None:
+                        host = (shard_batch(b, mesh, grad_accum) for b in host)
+                    batches = prefetch_batches(host, prefetch=2, device=device)
                 # the epoch's augmentation draws, from a generator on the device
                 generator = torch.Generator(device=device).manual_seed((cfg.seed or 0) + epoch)
 
@@ -347,10 +453,8 @@ class Trainer:
                     if grad_hist:
                         logger.log_histograms(m["grads"], step - 1, prefix="epoch/")
                     if compute_train_metrics:
-                        self._detection_metrics(
-                            m["detections"], m["aug_boxes"], m["aug_labels"],
-                            m["aug_box_mask"], batch_mask, "train", accum,
-                        )
+                        record(m["detections"], m["aug_boxes"], m["aug_labels"],
+                               m["aug_box_mask"], batch_mask, "train", accum)
                     if step % cfg.log_every_n_steps == 0:
                         host_m = {k: float(m[k]) for k in ("total_loss", "conf_loss", "loc_loss",
                                                            "nonfinite_streak", "grad_norm")}
@@ -375,7 +479,7 @@ class Trainer:
                 train_s, steps_run = time.perf_counter() - t0, len(train_losses)
 
                 epoch_logs = {}
-                if compute_train_metrics and accum["train"]:
+                if compute_train_metrics and accum["train"]:  # rank 0's alone
                     self._finalize_detection_metrics(accum, "train", config, epoch_logs,
                                                      "training")
                     # parameter L1 scalar, logged with train metrics like the
@@ -403,23 +507,21 @@ class Trainer:
                             # its patch-frame detections
                             gt = {k: ev.get(f"gt_{k}", host_val[k][ids])
                                   for k in ("boxes", "labels", "box_mask")}
-                            self._detection_metrics(
-                                ev["detections"], gt["boxes"], gt["labels"],
-                                _host(gt["box_mask"]) & valid[:, None], valid, "val", accum,
-                            )
+                            record(ev["detections"], gt["boxes"], gt["labels"],
+                                   _host(gt["box_mask"]) & valid[:, None], valid, "val", accum)
                             if sw_val_on:
                                 rows = ids[valid]
                                 det = sw_val_detect(val_state,
                                                     val_data["image"][torch.from_numpy(rows)
                                                                       .to(device)])
-                                self._detection_metrics(
-                                    det, host_val["boxes"][rows], host_val["labels"][rows],
-                                    host_val["box_mask"][rows], np.ones(len(rows), bool),
-                                    "val_full", accum,
-                                )
+                                record(det, host_val["boxes"][rows], host_val["labels"][rows],
+                                       host_val["box_mask"][rows], np.ones(len(rows), bool),
+                                       "val_full", accum)
                 else:
                     for batch in datamodule.val_batches():
                         batch = array_batch(batch)
+                        if mesh is not None:
+                            batch = shard_batch(batch, mesh)
                         ev = eval_step(val_state, batch)
                         val_losses.append(
                             {k: ev[k] for k in ("total_loss", "conf_loss", "loc_loss", "n_valid")}
@@ -427,18 +529,21 @@ class Trainer:
                         if compute_val_metrics:
                             gt = {k: ev.get(f"gt_{k}", batch[k])
                                   for k in ("boxes", "labels", "box_mask")}
-                            self._detection_metrics(
-                                ev["detections"], gt["boxes"], gt["labels"], gt["box_mask"],
-                                batch["batch_mask"], "val", accum,
-                            )
+                            record(ev["detections"], gt["boxes"], gt["labels"], gt["box_mask"],
+                                   batch["batch_mask"], "val", accum)
                             keep = batch["batch_mask"].astype(bool)
-                            if sw_val_on and keep.any():
+                            if sw_val_on and mesh is not None:
+                                # every rank scores all its rows (the same count
+                                # on each), so that the rows gather; the mask
+                                # drops the padding
+                                record(sw_val_detect(val_state, batch["image"]), batch["boxes"],
+                                       batch["labels"], batch["box_mask"], keep, "val_full",
+                                       accum)
+                            elif sw_val_on and keep.any():
                                 det = sw_val_detect(val_state, batch["image"][keep])
-                                self._detection_metrics(
-                                    det, batch["boxes"][keep], batch["labels"][keep],
-                                    batch["box_mask"][keep], np.ones(int(keep.sum()), bool),
-                                    "val_full", accum,
-                                )
+                                record(det, batch["boxes"][keep], batch["labels"][keep],
+                                       batch["box_mask"][keep], np.ones(int(keep.sum()), bool),
+                                       "val_full", accum)
 
                 # one read of the epoch's train and val losses
                 train_losses = [{k: float(v) for k, v in m.items()} for m in train_losses]
@@ -476,7 +581,7 @@ class Trainer:
 
                 logger.log(epoch_logs, step)
                 history.append({"epoch": epoch, **epoch_logs})
-                if cfg.verbose:
+                if verbose:
                     train_loss = (float(np.mean([m["total_loss"] for m in train_losses]))
                                   if train_losses else float("nan"))
                     msg = (f"[epoch {epoch:3d}] step {step} train_loss={train_loss:.4f} "
@@ -490,21 +595,26 @@ class Trainer:
 
                 # ---- checkpoint + early stopping ----
                 if np.isfinite(avg_val):
-                    ckpt.save(state, config, {"avg_val_loss": avg_val}, epoch)
+                    if ckpt is not None:
+                        ckpt.save(state, config, {"avg_val_loss": avg_val}, epoch)
                     if avg_val < best_val:
                         best_val = avg_val
                         patience_left = cfg.early_stopping_patience
                     elif cfg.early_stopping:
                         patience_left -= 1
                         if patience_left <= 0:
-                            if cfg.verbose:
+                            if verbose:
                                 print(f"[early stopping] at epoch {epoch}")
                             done = True
+                if mesh is not None:  # every rank stops where rank 0 does
+                    flag = torch.tensor([int(done)], dtype=torch.int32, device=device)
+                    done = bool(broadcast([flag], mesh)[0])
 
                 epoch += 1
 
         finally:
             logger.close()
         return state, {"history": history, "best_val_loss": best_val,
-                       "checkpoint_dir": str(ckpt.root), "best_checkpoint": str(ckpt.best),
+                       "checkpoint_dir": str(checkpoint_dir),
+                       "best_checkpoint": None if ckpt is None else str(ckpt.best),
                        "timings": {"materialize_s": materialize_s, "epochs": epoch_times}}

@@ -14,9 +14,19 @@ and optionally ``batch_mask`` (B,). With ``patch_training`` the images are
 full-resolution volumes and the steps crop ``config.input_size`` patches
 from them on the device (``data/patches.py``).
 
-Not ported yet: the sharded steps (ROADMAP item 17b). The JAX package's
-whole-epoch scan is a TPU dispatch workaround that gives the same numbers
-as stepping; the port steps.
+Data parallelism: given a data mesh (``parallel.make_mesh``, one rank a
+card), a step takes this rank's rows of the global batch
+(``parallel.shard_batch``) and computes what the JAX package's sharded
+program computes on the whole of it: every random draw is the global
+batch's, of which the rank keeps its rows; BatchNorm takes the global
+batch's statistics; the loss divides by the global positives; the
+gradients, losses and counts are summed over the ranks, so the update, the
+metrics and the non-finite select are the same on every rank. Detections
+stay per rank, for the caller to gather (``parallel.gather_rows``).
+
+The JAX package's whole-epoch scan is a TPU dispatch workaround that gives
+the same numbers as stepping; the port steps. Spatial sharding (ROADMAP
+item 17c) is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from ..data.patches import (
 from ..models.losses import multibox_loss_from_config
 from ..models.ssd3d import SSD3D, SSD3DConfig
 from ..ops.nms import detect_objects
+from ..parallel.collectives import all_reduce_sum, data_parallel
+from ..parallel.mesh import local_row_runs
 from .state import TrainState
 
 
@@ -86,7 +98,8 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
                     augment: AugmentConfig | None = None, hard_negative_mining: bool = False,
                     skip_nonfinite: bool = True, with_detections: bool = False,
                     return_grads: bool = False, grad_accum: int = 1,
-                    patch_training: bool = False, patch_pos_fraction: float = 0.7):
+                    patch_training: bool = False, patch_pos_fraction: float = 0.7,
+                    mesh=None):
     """Returns fn(state, batch, generator=None) -> (new state, metrics).
 
     ``generator`` (a ``torch.Generator`` on the state's device) draws, in
@@ -110,6 +123,12 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
     Metrics: total_loss, conf_loss, loc_loss, n_positives (valid boxes after
     augmentation, the JAX package's metric), nonfinite, nonfinite_streak and
     grad_norm (over every parameter).
+
+    With a data ``mesh`` of W ranks the batch is this rank's rows of a global
+    batch of W x its size (``parallel.local_row_runs``: with ``grad_accum`` its
+    share of every micro-batch) and the generator is in the same state on
+    every rank; the metrics, gradients and new state are the global batch's
+    on every rank, the detections and ground truth this rank's.
     """
     augment = augment or AugmentConfig()
     priors_on = _priors_by_device(priors_center)
@@ -123,6 +142,7 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         conf_loss, loc_loss = multibox_loss_from_config(
             config, locs, scores, mb["boxes"], mb["labels"], mb["box_mask"],
             priors, batch_mask=mb["batch_mask"], hard_negative_mining=hard_negative_mining,
+            mesh=mesh,
         )
         return conf_loss + config.alpha * loc_loss, conf_loss, loc_loss, locs, scores
 
@@ -134,12 +154,18 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         if random and generator is None:
             raise ValueError("make_train_step: patch training, augmentation and dropout "
                              "need a generator")
+        b = images.shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch size {b} is not divisible by grad_accum={grad_accum}")
+        # under a mesh: the global batch's draws, of which this rank keeps its rows
+        draw = ({} if mesh is None else dict(global_batch=b * mesh.size,
+                                             rows=local_row_runs(b * mesh.size, mesh, grad_accum)))
         if patch_training:
             starts = sample_patch_starts(generator, tuple(images.shape[1:4]), patch, boxes,
-                                         box_mask, patch_pos_fraction)
+                                         box_mask, patch_pos_fraction, **draw)
             images, boxes, box_mask = _crop(images, boxes, box_mask, starts, patch)
         if not augment.identity:
-            images, boxes = augment_batch(generator, images, boxes, augment)
+            images, boxes = augment_batch(generator, images, boxes, augment, **draw)
             boxes = torch.clamp(boxes, 0.0, 1.0)
             box_mask = box_mask & ~(boxes[..., 3:] <= boxes[..., :3]).any(dim=-1)
         full = {"image": images, "boxes": boxes, "labels": batch["labels"],
@@ -150,30 +176,23 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         leaves = {n: p.detach().requires_grad_() for n, p in state.params.items()}
         # the BN running statistics are moved in place: work on copies
         stats = {n: s.clone() for n, s in state.batch_stats.items()}
-        b = images.shape[0]
-        if b % grad_accum:
-            raise ValueError(f"batch size {b} is not divisible by grad_accum={grad_accum}")
         m = b // grad_accum
-        gsum, totals, confs, locs_l, locs_out, scores_out = None, [], [], [], [], []
-        for i in range(grad_accum):
-            mb = {k: v[i * m:(i + 1) * m] for k, v in full.items()}
-            total, conf, loc, locs, scores = loss_fn(leaves, stats, mb, priors, generator)
-            g = torch.autograd.grad(total, [leaves[n] for n in names], allow_unused=True)
-            g = [torch.zeros_like(leaves[n]) if gi is None else gi for n, gi in zip(names, g)]
-            gsum = g if gsum is None else torch._foreach_add(gsum, g)
-            totals.append(total.detach())
-            confs.append(conf.detach())
-            locs_l.append(loc.detach())
-            locs_out.append(locs.detach())
-            scores_out.append(scores.detach())
-        if grad_accum == 1:
-            grads = gsum
-            total, conf_loss, loc_loss = totals[0], confs[0], locs_l[0]
-        else:
-            grads = torch._foreach_div(gsum, float(grad_accum))
-            total = torch.stack(totals).mean()
-            conf_loss, loc_loss = torch.stack(confs).mean(), torch.stack(locs_l).mean()
-        grads = dict(zip(names, grads))
+        gsum, losses, locs_out, scores_out = None, [], [], []
+        with data_parallel(mesh):
+            for i in range(grad_accum):
+                mb = {k: v[i * m:(i + 1) * m] for k, v in full.items()}
+                total, conf, loc, locs, scores = loss_fn(leaves, stats, mb, priors, generator)
+                g = torch.autograd.grad(total, [leaves[n] for n in names], allow_unused=True)
+                g = [torch.zeros_like(leaves[n]) if gi is None else gi for n, gi in zip(names, g)]
+                gsum = g if gsum is None else torch._foreach_add(gsum, g)
+                losses.append(torch.stack([total, conf, loc]).detach())
+                locs_out.append(locs.detach())
+                scores_out.append(scores.detach())
+        grads = gsum if grad_accum == 1 else torch._foreach_div(gsum, float(grad_accum))
+        # this rank's shares of the losses and gradients -> the global batch's
+        losses, n_pos = all_reduce_sum([torch.stack(losses), box_mask.sum().float()], mesh)
+        grads = dict(zip(names, all_reduce_sum(grads, mesh)))
+        total, conf_loss, loc_loss = losses[0] if grad_accum == 1 else losses.mean(0)
 
         updated = state.apply_gradients(grads, new_batch_stats=stats)
         decay = float(config.ema_decay)
@@ -197,7 +216,7 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
             "total_loss": total,
             "conf_loss": conf_loss,
             "loc_loss": loc_loss,
-            "n_positives": box_mask.sum().float(),
+            "n_positives": n_pos,
             "nonfinite": (~finite).float(),
             "nonfinite_streak": streak,
             "grad_norm": grad_norm,
@@ -266,9 +285,31 @@ def make_gathered_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
     return step
 
 
+def make_sharded_gathered_train_step(config: SSD3DConfig, model: SSD3D, priors_center, mesh,
+                                     augment: AugmentConfig | None = None, **kwargs):
+    """Data-parallel train step over a dataset sharded over the mesh:
+    fn(state, data, idx, generator=None).
+
+    Each rank holds its shard of the materialized dataset on its card
+    (``data``) and ``idx`` (B / W,) holds indices local to it; the global
+    batch is the ranks' gathered rows in rank order, as the JAX package's
+    ``make_sharded_gathered_train_step`` (block d of its index vector is
+    shard d's). The gather touches no other rank; the step is
+    :func:`make_train_step`'s under ``mesh``. With ``grad_accum > 1`` the JAX
+    program's micro-batch i is the global rows [i m, (i + 1) m), which lie
+    in other ranks' shards, so more than one rank with ``grad_accum > 1``
+    raises: stream the batches instead.
+    """
+    if mesh.size > 1 and max(1, int(kwargs.get("grad_accum", 1))) > 1:
+        raise ValueError(f"the sharded gathered step over {mesh.size} ranks takes grad_accum=1 "
+                         f"(got {kwargs['grad_accum']}): micro-batches of the global batch span "
+                         "other ranks' shards")
+    return make_gathered_train_step(config, model, priors_center, augment, mesh=mesh, **kwargs)
+
+
 def make_eval_step(config: SSD3DConfig, model: SSD3D, priors_center,
                    with_detections: bool = True, hard_negative_mining: bool = False,
-                   patch_training: bool = False):
+                   patch_training: bool = False, mesh=None):
     """Returns fn(state, batch) -> metrics (+ padded detections).
 
     The model runs in eval mode on the running BN statistics, so the
@@ -279,6 +320,10 @@ def make_eval_step(config: SSD3DConfig, model: SSD3D, priors_center,
     (``data/patches.py``), so the monitored loss repeats; the detections are
     then in the patch frame, and ``gt_boxes`` / ``gt_labels`` /
     ``gt_box_mask`` hand back the ground truth re-mapped into it.
+
+    With a data ``mesh`` the batch is this rank's rows of the global batch:
+    the losses and ``n_valid`` are the global batch's on every rank, the
+    detections this rank's.
     """
     priors_on = _priors_by_device(priors_center)
     patch = tuple(config.input_size)
@@ -297,12 +342,18 @@ def make_eval_step(config: SSD3DConfig, model: SSD3D, priors_center,
         conf_loss, loc_loss = multibox_loss_from_config(
             config, locs, scores, boxes, batch["labels"], box_mask,
             priors, batch_mask=batch["batch_mask"], hard_negative_mining=hard_negative_mining,
+            mesh=mesh,
         )
+        total = conf_loss + config.alpha * loc_loss
+        n_valid = batch["batch_mask"].sum().float()
+        if mesh is not None:
+            total, conf_loss, loc_loss, n_valid = all_reduce_sum(
+                [torch.stack([total, conf_loss, loc_loss, n_valid])], mesh)[0]
         out = {
-            "total_loss": conf_loss + config.alpha * loc_loss,
+            "total_loss": total,
             "conf_loss": conf_loss,
             "loc_loss": loc_loss,
-            "n_valid": batch["batch_mask"].sum().float(),
+            "n_valid": n_valid,
         }
         if with_detections:
             out["detections"] = _detect(config, locs, scores, priors)

@@ -30,9 +30,11 @@
   against the port's ``-sw 1`` and ``-sw 1 -vb 4``, matched as above
   (the strict case's weights, x10, at ``-sc 0.5 -k 100``: no cut falls on a
   near tie, see tests/test_torch_port_sliding_window.py); the port's
-  ``-vb 4`` files byte-equal to its ``-sw 1`` files.
-- The parser takes every JAX flag (``--platform`` is ``--device``), the
-  unported ``--sw_data_parallel`` raises, a volume of another size than
+  ``-vb 4`` files byte-equal to its ``-sw 1`` files, and so are its
+  ``-sw 1 --sw_data_parallel 1`` files, over the one CPU and with the
+  visible devices set to two CPU shards.
+- The parser takes every JAX flag (``--platform`` is ``--device``), a
+  volume of another size than
   the checkpoint's input says to run ``-sw 1``, and the CLI wants a card
   unless given ``--device cpu``.
 """
@@ -392,11 +394,17 @@ def sw_predicted(tmp_path_factory):
 
         mp.setattr("mslesions3d_tpu.native.load_nifti_fast", no_native)
         assert jax_predict.main([*args, "-m", str(jax_ckpt), "-o", str(tmp / "jax")]) == 0
-    for name, extra in (("port", []), ("port_vb", ["-vb", "4"])):
-        assert predict.main([*args, *extra, "-m", str(port_ckpt), "-o", str(tmp / name),
-                             "--device", "cpu"]) == 0
+    runs = (("port", [], None), ("port_vb", ["-vb", "4"], None),
+            ("port_dp", ["--sw_data_parallel", "1"], None),
+            ("port_dp_two", ["--sw_data_parallel", "1"], ("cpu", "cpu")))
+    for name, extra, devices in runs:
+        with pytest.MonkeyPatch.context() as mp:
+            if devices is not None:
+                mp.setattr(predict, "visible_devices", lambda device: devices)
+            assert predict.main([*args, *extra, "-m", str(port_ckpt), "-o", str(tmp / name),
+                                 "--device", "cpu"]) == 0
     sub = Path("train_set") / "min_score_0.5"
-    return {name: tmp / name / sub for name in ("jax", "port", "port_vb")}
+    return {name: tmp / name / sub for name in ("jax", *(r[0] for r in runs))}
 
 
 @pytest.mark.parametrize("mode", ["port", "port_vb"])
@@ -444,19 +452,24 @@ def test_volume_batch_files_equal_single_volumes(sw_predicted):
         assert (stacked / name).read_bytes() == (single / name).read_bytes(), name
 
 
+@pytest.mark.parametrize("mode", ["port_dp", "port_dp_two"])
+def test_sw_data_parallel_files_equal_unsharded(sw_predicted, mode):
+    """``--sw_data_parallel 1`` writes the files of ``-sw 1`` byte for byte,
+    over the one visible CPU and over two CPU shards of every chunk."""
+    single, sharded = sw_predicted["port"], sw_predicted[mode]
+    names = sorted(p.name for p in single.iterdir() if p.suffix in (".json", ".csv"))
+    assert len(names) == 14
+    assert names == sorted(p.name for p in sharded.iterdir() if p.suffix in (".json", ".csv"))
+    for name in names:
+        assert (sharded / name).read_bytes() == (single / name).read_bytes(), name
+
+
 # ------------------------------------------------------------------ flags
 def test_parser_takes_every_jax_flag():
     ours, ref = _options(predict.build_parser()), _options(jax_predict.build_parser())
     assert ref.pop("--platform")[1] is None
     assert ours.pop("--device")[:2] == ("device", "cuda")
     assert ours == ref
-
-
-@pytest.mark.parametrize("flags,item", [(["--sw_data_parallel", "1"], "17")])
-def test_unported_flags_raise(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        predict.main(["-m", str(tmp_path / "none"), "-o", str(tmp_path), "--device", "cpu",
-                      *flags])
 
 
 def test_predict_wants_a_card_unless_asked_for_the_cpu(tmp_path):

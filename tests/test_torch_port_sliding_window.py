@@ -15,6 +15,9 @@
 - ``volume_batch=2`` equals two single calls exactly; the stitch suppresses some
   candidates on these volumes (overlapping patches see the same boxes), so
   its NMS is exercised; the build-time announcement names the cap.
+- ``mesh=("cpu", "cpu")`` (patches in two shards) equals the unsharded
+  detector exactly and matches JAX's ``mesh=make_mesh(8)``; a
+  ``patch_batch`` that does not divide over the mesh raises.
 """
 
 import jax.numpy as jnp
@@ -25,9 +28,12 @@ from test_torch_port_forward import randomized_variables
 
 from mslesions3d_tpu import sliding_window as jax_sw
 from mslesions3d_tpu.models import SSD3DConfig as JaxConfig
+from mslesions3d_tpu.parallel import make_mesh as jax_make_mesh
+from mslesions3d_tpu.utils.cache import quarantine_from_persistent_cache
 from mslesions3d_tpu_torch import sliding_window as sw
 from mslesions3d_tpu_torch.kernels import nms as nms_kernels
 from mslesions3d_tpu_torch.models.ssd3d import SSD3DConfig
+from mslesions3d_tpu_torch.ops import nms as nms_ops
 from mslesions3d_tpu_torch.train import create_train_state
 from mslesions3d_tpu_torch.weights import from_jax_variables
 
@@ -144,6 +150,48 @@ def test_stitch_suppresses_duplicates(setup, monkeypatch):
     assert n_valid > n_kept > 0
 
 
-def test_mesh_is_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        sw.make_sliding_window_detector(setup["cfg"], VOL, mesh=object())
+@pytest.mark.parametrize("volume_batch", [1, 2])
+def test_mesh_equals_unsharded_and_jax(setup, volume_batch, monkeypatch):
+    """``mesh=("cpu", "cpu")``: each chunk in two shards of patches, each with
+    its own per-patch NMS (2 calls a chunk), and the stitch in two shards
+    when its rows divide (V = 2); the detections equal the unsharded
+    detector's exactly, and JAX's ``mesh=make_mesh(8)`` run as
+    ``test_detector_matches_jax`` matches."""
+    vol = setup["volumes"] if volume_batch == 2 else setup["volumes"][0]
+    plain = sw.make_sliding_window_detector(setup["cfg"], VOL, volume_batch=volume_batch)(
+        setup["state"], vol)
+    calls = {"patch": 0, "stitch": 0}
+
+    def counted(site):
+        def nms(boxes, valid, max_overlap, plan=None):
+            calls[site] += 1
+            return nms_kernels.greedy_nms(boxes, valid, max_overlap)
+        return nms
+
+    monkeypatch.setattr(sw, "greedy_nms_cuda", counted("stitch"))
+    monkeypatch.setattr(nms_ops, "greedy_nms_cuda", counted("patch"))
+    run = sw.make_sliding_window_detector(setup["cfg"], VOL, volume_batch=volume_batch,
+                                          mesh=("cpu", "cpu"))
+    ours = run(setup["state"], vol)
+    assert run.patch_batch == (8 if volume_batch == 1 else 16)
+    assert calls == {"patch": 2, "stitch": volume_batch}
+    for key in plain:
+        assert torch.equal(ours[key], plain[key]), key
+    # a multi-device program taken from the persistent compile cache can
+    # corrupt the heap on the forced 8-device CPU backend (the JAX package's
+    # bug D): this one compiles fresh
+    ref = quarantine_from_persistent_cache(jax_sw.make_sliding_window_detector(
+        setup["jcfg"], VOL, volume_batch=volume_batch, mesh=jax_make_mesh(8)))(
+        setup["variables"], jnp.asarray(vol))
+    _assert_detections_match(ours, ref)
+
+
+def test_mesh_patch_batch_must_divide(setup):
+    run = sw.make_sliding_window_detector(setup["cfg"], VOL, patch_batch=3,
+                                          mesh=("cpu", "cpu", "cpu"))
+    assert run.patch_batch == 3
+    with pytest.raises(ValueError, match="patch_batch=7 not divisible by the mesh's 2 devices"):
+        sw.make_sliding_window_detector(setup["cfg"], VOL, patch_batch=7, mesh=("cpu", "cpu"))
+    # the default rounds up to a multiple of the devices: 8 patches over 3
+    assert sw.make_sliding_window_detector(setup["cfg"], VOL,
+                                           mesh=("cpu",) * 3).patch_batch == 9
