@@ -166,6 +166,27 @@ Phases (any failure exits non-zero and prints no result line):
    1`` on phase 4e's checkpoint writes phase 4e's files byte for byte.
    (d) The ConvNet's dropout masks at 64^3 drawn for W = 1, 2 and 8 ranks'
    global batch. The phase's checks are all made, and any failure fails it.
+4h. spatial sharding on the one card: two ranks spawned on it under gloo
+   form a 1 x 2 data x spatial mesh (``parallel.make_mesh_2d``), MobileNet
+   at full width in bf16, each run with the launch counts set to 0 in the
+   ranks just before it and read just after. (a) The train step at BASELINE
+   config #3's volume (batch 2 of 192x224x192, flips) against the unsharded
+   step on the same card: losses, gradient norm, the gradient vector, each
+   leaf's norm and the BN statistics within the stated bounds; each rank's
+   peak memory beside the unsharded step's; ms a step; the same step with
+   ``remat`` (the blocks recomputed in the backward under their forward's
+   split) held to the same bounds against the unsharded step without it,
+   with its peak memory. (b) The sharded eval
+   forward (``make_spatially_sharded_forward``) and eval step at batch 1 of
+   the 96^3 headline with its BN calibrated, default path and both flags:
+   K2 once a forward a rank on its haloed slab of layer 3 (0 mismatches
+   against its plain version; its middle planes against the unsharded
+   K2's), K3 once a forward a rank past the cut (within its bound), K1 once
+   an eval step (equal to the plain NMS), the locs, scores and detections
+   against the unsharded detector's. (c) ``cli.train --spatial_shards 2`` on
+   phase 4c's recipe cut to 4 steps, streaming, beside the 1-rank streaming
+   run: its validation loss within the JAX trainer test's tolerance. The
+   phase's checks are all made, and any failure fails it.
 5. times on the card: K1 (at K = 1000, and at K = 3942 for N = 8 and 32;
    on the full-volume path: a chunk's per-patch NMS at N = 32, K = 500 and
    the stitch at V = 1 and 4, K = 1000, and at top_k 395, K = 3950),
@@ -242,7 +263,15 @@ from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, plan_tail, tail_
 from mslesions3d_tpu_torch.models.losses import multibox_loss_from_config
 from mslesions3d_tpu_torch.models.ssd3d import SSD3D, SSD3DConfig, model_priors
 from mslesions3d_tpu_torch import sliding_window
-from mslesions3d_tpu_torch.parallel import initialize_multihost, make_mesh, shard_batch
+from mslesions3d_tpu_torch.models import layers as model_layers
+from mslesions3d_tpu_torch.models import mobilenet as model_mobilenet
+from mslesions3d_tpu_torch.parallel import (
+    initialize_multihost,
+    make_mesh,
+    make_mesh_2d,
+    make_spatially_sharded_forward,
+    shard_batch,
+)
 from mslesions3d_tpu_torch.ops import nms as nms_ops
 from mslesions3d_tpu_torch.ops.metrics import calculate_mAP
 from mslesions3d_tpu_torch.ops.boxes import pairwise_iou
@@ -814,13 +843,14 @@ def check_served(requests, served, config):
 
 
 # ---------------------------------------------------------------- training
-def train_batch(b: int, gen) -> dict:
-    """bench.py's training batch, made on the card: randn volumes with the two
-    boxes (label 1) painted in (+3), so the model has something to learn."""
-    d = TRAIN["input_size"][0]
-    images = torch.randn((b, d, d, d, 1), generator=gen, device="cuda")
+def train_batch(b: int, gen, size=None) -> dict:
+    """bench.py's training batch, made on the card: randn volumes (of
+    ``size``, default the training geometry's) with the two boxes (label 1)
+    painted in (+3), so the model has something to learn."""
+    size = tuple(size or TRAIN["input_size"])
+    images = torch.randn((b, *size, 1), generator=gen, device="cuda")
     for box in TRAIN_BOXES:
-        v = [int(c * d) for c in box]
+        v = [int(c * n) for c, n in zip(box, size * 2)]
         images[:, v[0]:v[3], v[1]:v[4], v[2]:v[5]] += 3.0
     boxes = torch.tensor(TRAIN_BOXES, dtype=torch.float32, device="cuda")
     return {"image": images, "boxes": boxes.expand(b, -1, -1).contiguous(),
@@ -2193,15 +2223,17 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def two_ranks_on_one_card(tmp: Path) -> list:
-    """Spawns the two ranks of ``dp_rank`` and waits for them, each join
+def two_ranks_on_one_card(tmp: Path, rank_fn=None, timeout_s: float = DP_TIMEOUT_S) -> list:
+    """Spawns the two ranks of ``rank_fn`` (default ``dp_rank``), each
+    saving ``<name>{rank}.pt`` in ``tmp``, and waits for them, each join
     bounded; returns their saved results."""
+    rank_fn = rank_fn or dp_rank
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    ctx = torch.multiprocessing.start_processes(dp_rank, args=(port, str(tmp)), nprocs=2,
+    ctx = torch.multiprocessing.start_processes(rank_fn, args=(port, str(tmp)), nprocs=2,
                                                join=False, start_method="spawn")
-    deadline = time.perf_counter() + DP_TIMEOUT_S
+    deadline = time.perf_counter() + timeout_s
     try:
         while not ctx.join(timeout=5):
             check(time.perf_counter() < deadline, "the two gloo ranks outlived their timeout")
@@ -2210,7 +2242,7 @@ def two_ranks_on_one_card(tmp: Path) -> list:
             if p.is_alive():
                 p.kill()
                 p.join()
-    return [torch.load(tmp / f"dp_rank{r}.pt", weights_only=False) for r in range(2)]
+    return [torch.load(tmp / f"{rank_fn.__name__}{r}.pt", weights_only=False) for r in range(2)]
 
 
 def match_detections(det: dict, ref: dict) -> torch.Tensor:
@@ -2612,6 +2644,366 @@ def drive_data_parallel(card, counters, tmp: Path, entry: dict, full: dict,
     return out
 
 
+# ---------------------------------------------------------------- spatial sharding
+# phase 4h: two gloo ranks sharing the card on a 1 x 2 data x spatial mesh
+# (parallel.make_mesh_2d), MobileNet at full width in bf16. (a) The train
+# step at BASELINE config #3's volume against the unsharded step on the same
+# card: the losses, gradient norm, the whole gradient vector and the BN
+# statistics within DP_RTOL (the slabs' convs may take other cuDNN
+# algorithms than the whole volume's, and the sums run in another order:
+# bf16 roundings, as in phase 4g); every leaf's norm within SP_LEAF_NORM of
+# the unsharded step's wherever the leaf holds at least SP_LEAF_FLOOR of the
+# vector's norm (a leaf counted once per spatial rank would be 2x). (b) The
+# eval forward and eval step at batch 1 of the 96^3 headline: K2 on each
+# rank's haloed slab of layer 3 (0 mismatches against its plain version),
+# K3 past the cut (within its bound), K1 in the eval step (the plain NMS's
+# detections), the locs and scores within DP_RTOL and the detections within
+# DP_DET_ATOL of the unsharded detector's. (c) cli.train --spatial_shards 2
+# on phase 4c's recipe cut to SP_RECIPE_STEPS steps (streaming, cuDNN
+# deterministic), its validation loss within SP_VAL_RTOL (the JAX package's
+# trainer test's) of the 1-rank streaming run's.
+SP_TRAIN = dict(TRAIN, input_size=FULL_VOLUME)
+SP_AUGMENT = dict(flip_axes=(0, 1, 2))
+SP_BATCH = 2
+SP_LEAF_NORM = 0.05
+SP_LEAF_FLOOR = 1e-3
+SP_RECIPE_STEPS = 4
+SP_VAL_RTOL = 2e-4
+SP_TIMEOUT_S = 900
+
+
+@contextmanager
+def recorded_k2_k3():
+    """Every K2 and K3 call the model makes: K2's (input, weights, gamma,
+    beta, output) and K3's (input, layers, emit, outputs), detached."""
+    calls = {"k2": [], "k3": []}
+    dw, tail = model_layers.fused_depthwise_bn_relu_cuda, model_mobilenet.fused_tail_cuda
+
+    def k2(x, weights, gamma, beta, **kwargs):
+        out = dw(x, weights, gamma, beta, **kwargs)
+        calls["k2"].append((x.detach(), weights.detach(), gamma.detach(), beta.detach(),
+                            out.detach()))
+        return out
+
+    def k3(x, layers, emit, **kwargs):
+        outs = tail(x, layers, emit, **kwargs)
+        calls["k3"].append((x.detach(), [_detached(layer) for layer in layers], tuple(emit),
+                            [o.detach() for o in outs]))
+        return outs
+
+    model_layers.fused_depthwise_bn_relu_cuda, model_mobilenet.fused_tail_cuda = k2, k3
+    try:
+        yield calls
+    finally:
+        model_layers.fused_depthwise_bn_relu_cuda, model_mobilenet.fused_tail_cuda = dw, tail
+
+
+def sp_train_step(mesh, counters, remat: bool = False) -> dict:
+    """Phase 4h (a): one bf16 train step at config #3's volume (batch 2,
+    flips), on this rank's rows under the mesh or unsharded, with or
+    without ``remat``; its metrics, gradients, BN statistics, the memory it
+    added at its peak, its launches and (without remat) ms a step."""
+    config = SSD3DConfig.create(**SP_TRAIN, remat=remat)
+    model, priors = SSD3D(config), model_priors(config)
+    state = create_train_state(config, seed=0, device="cuda")
+    batch = train_batch(SP_BATCH, torch.Generator(device="cuda").manual_seed(1),
+                        size=FULL_VOLUME)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    step = make_train_step(config, model, priors, augment=AugmentConfig(**SP_AUGMENT),
+                           mesh=mesh, return_grads=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    new, m = step(state, batch, torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    out = {"peak_added": torch.cuda.max_memory_allocated() - before,
+           "launches": [c.launches for c in counters],
+           "metrics": {k: float(m[k]) for k in ("total_loss", "conf_loss", "loc_loss",
+                                                "grad_norm", "n_positives")},
+           "grads": {k: v.float().cpu() for k, v in m["grads"].items()},
+           "batch_stats": {k: v.cpu() for k, v in new.batch_stats.items()}}
+    if not remat:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        out["step_ms"], _ = step_rounds(step, new, batch, gen, iters=3, rounds=2)
+    return out
+
+
+def sp_eval(mesh, name: str, cal_state, counters) -> dict:
+    """Phase 4h (b): the eval forward (``make_spatially_sharded_forward`` on
+    the mesh) and the eval step at batch 1 of the 96^3 headline with the
+    BN-calibrated weights, on the default path or with both flags; with the
+    launches of each, K2's and K3's operands and outputs, and the eval
+    step's locs and scores."""
+    config = SSD3DConfig.create(**HEADLINE, **FLAG_SETTINGS[name])
+    model = SSD3D(config)
+    model.load_state_dict(cal_state)
+    model.cuda()
+    priors = model_priors(config)
+    state = create_train_state(config, device="cuda", state_dict=cal_state)
+    batch = train_batch(1, torch.Generator(device="cuda").manual_seed(5),
+                        size=HEADLINE["input_size"])
+    step = make_eval_step(config, model, priors, mesh=mesh)
+    forward = (make_spatially_sharded_forward(model, mesh) if mesh is not None else
+               lambda x: model.eval()(x))
+    out = {}
+    with recorded_k2_k3() as calls, tapped(model) as outs, torch.no_grad():
+        for c in counters:
+            c.launches = 0
+        locs, scores = forward(batch["image"])
+        torch.cuda.synchronize()
+        out["forward_launches"] = [c.launches for c in counters]
+        for c in counters:
+            c.launches = 0
+        ev = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_launches"] = [c.launches for c in counters]
+    out.update(locs=locs.float().cpu(), scores=scores.float().cpu(),
+               detections={k: v.cpu() for k, v in ev["detections"].items()},
+               step_locs_scores=[t.cpu() for t in outs[-1]], calls=calls,
+               loss=float(ev["total_loss"]))
+    return out
+
+
+def sp_rank(rank: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of two gloo ranks sharing the card on a 1 x 2 data x
+    spatial mesh (phase 4h): (a), (b) and (c) on its rows of the batches; its
+    kernels held against their plain versions on the operands it gave them;
+    saves what it computed."""
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda:0",
+                         timeout_s=SP_TIMEOUT_S)
+    mesh = make_mesh_2d(1, 2, device="cuda:0")
+    inputs = torch.load(tmp / "sp_inputs.pt", weights_only=False)
+    counters = (greedy_nms_cuda, fused_depthwise_bn_relu_cuda, fused_tail_cuda)
+    out = {"mesh": mesh.describe(), "train": sp_train_step(mesh, counters), "eval": {}}
+    torch.cuda.empty_cache()
+    out["train_remat"] = sp_train_step(mesh, counters, remat=True)
+    torch.cuda.empty_cache()
+    for name in ("off", "both"):
+        ev = sp_eval(mesh, name, inputs["cal_state"], counters)
+        config = SSD3DConfig.create(**HEADLINE, **FLAG_SETTINGS[name])
+        priors = torch.from_numpy(model_priors(config)).cuda()
+        check_plain_detections(f"spatial rank {rank}, eval step [{name}]",
+                               {k: v.cuda() for k, v in ev["detections"].items()},
+                               *(t.cuda() for t in ev["step_locs_scores"]), priors, config)
+        calls = ev.pop("calls")
+        if name == "both":  # K2 and K3 on this rank's operands, against their plain versions
+            x, w, gamma, beta, k2_out = calls["k2"][0]
+            ev["dw_check"] = compare_dw(f"spatial rank {rank}, layer 3's haloed slab", x, w,
+                                        gamma, beta)
+            ev["k2_input"] = tuple(x.shape)
+            ev["k2_planes"] = k2_out[:, :, 1:-1].cpu()
+            tail_x, tail_layers, emit, maps = calls["k3"][0]
+            ev["tail_check"] = compare_tail_exact(f"spatial rank {rank}, the tail past the cut",
+                                                  tail_x, tail_layers, emit)
+            ev["k3_input"] = tuple(tail_x.shape)
+            ev["k3_maps"] = [m.cpu() for m in maps]
+        out["eval"][name] = ev
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    result = train_cli.main([*inputs["recipe_args"], "-en", "spatial", "--spatial_shards", "2"])
+    out["trainer"] = {"launches": [c.launches for c in counters],
+                      "losses": [v for e in result["timings"]["epochs"]
+                                 for v in e["train_losses"]],
+                      "val": [h["avg_val_loss"] for h in result["history"]],
+                      "ms_per_step": [e["train_s"] / e["steps"] * 1e3
+                                      for e in result["timings"]["epochs"]],
+                      "fit_s": time.perf_counter() - t0}
+    torch.save(out, tmp / f"sp_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def drive_spatial(card, counters, tmp: Path, entry: dict, cal_state) -> dict:
+    """Phase 4h: spatial sharding on the one card, two gloo ranks on a 1 x 2
+    mesh (``sp_rank``) against the unsharded step, forward, eval step and
+    trainer run on the same card."""
+    t_phase = time.perf_counter()
+    out = {"k1": {}, "k2": {}, "k3": {}, "timing": {}}
+    failed = []
+
+    def expect(cond, message: str) -> None:
+        if not cond:
+            log(f"CHECK FAILED: {message}")
+            failed.append(message)
+
+    # the unsharded references on this card, before the ranks start
+    ref_train = sp_train_step(None, counters)
+    torch.cuda.empty_cache()
+    ref_eval = {name: sp_eval(None, name, cal_state, counters) for name in ("off", "both")}
+    recipe_args = ["-d", str(entry["root"]), *recipe.TRAIN_FLAGS, "-mi", str(SP_RECIPE_STEPS),
+                   "-ld", str(tmp / "sp_logs"), "--device", "cuda", "--device_data_cache", "0"]
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    ref_fit = train_cli.main([*recipe_args, "-en", "plain"])
+    ref_fit_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = False
+    torch.save({"cal_state": {k: v.cpu() for k, v in cal_state.items()},
+                "recipe_args": recipe_args}, tmp / "sp_inputs.pt")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = two_ranks_on_one_card(tmp, sp_rank, SP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+
+    # (a) the train step at config #3's volume
+    names = list(ref_train["grads"])
+    g1 = torch.cat([ref_train["grads"][n].ravel() for n in names])
+    whole = float(g1.norm())
+
+    def against_unsharded(key):
+        """(relative differences of the metrics, of the gradient vector,
+        every (leaf, rank) norm ratio, the worst counted leaf's distance
+        from 1, the BN statistics') of the ranks' ``key`` step."""
+        rel = {k: max(abs(r[key]["metrics"][k] - ref_train["metrics"][k])
+                      / abs(ref_train["metrics"][k]) for r in ranks)
+               for k in ("total_loss", "conf_loss", "loc_loss", "grad_norm")}
+        grads_rel = max(float((torch.cat([r[key]["grads"][n].ravel() for n in names]) - g1)
+                              .norm() / g1.norm()) for r in ranks)
+        ratios = {n: [float(r[key]["grads"][n].norm() / ref_train["grads"][n].norm())
+                      for r in ranks] for n in names if float(ref_train["grads"][n].norm()) > 0}
+        worst = max(abs(v - 1.0) for n, vs in ratios.items() for v in vs
+                    if float(ref_train["grads"][n].norm()) >= SP_LEAF_FLOOR * whole)
+        stats = max(float((r[key]["batch_stats"][n] - s).abs().max()
+                          / s.abs().max().clamp(min=1e-12))
+                    for r in ranks for n, s in ref_train["batch_stats"].items())
+        return rel, grads_rel, [v for vs in ratios.values() for v in vs], worst, stats
+
+    rel, grads_rel, all_ratios, worst_leaf, stats_rel = against_unsharded("train")
+    counted = [n for n in names if float(ref_train["grads"][n].norm()) >= SP_LEAF_FLOOR * whole]
+    peaks = [r["train"]["peak_added"] for r in ranks]
+    log(f"spatial sharding, two gloo ranks sharing the card ({ranks[0]['mesh']}; spawned and "
+        f"joined in {ranks_s:.1f} s): the bf16 train step at {SP_BATCH} x {FULL_VOLUME} with "
+        f"flips against the unsharded step: relative differences "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in rel.items())}, the gradient vector "
+        f"{grads_rel:.2e}, BN statistics {stats_rel:.2e} (bound {DP_RTOL} each); leaf norm "
+        f"ratios over {len(all_ratios)} (leaf, rank) pairs from {min(all_ratios):.4f} to "
+        f"{max(all_ratios):.4f}, at most {worst_leaf:.4f} from 1 over the {len(counted)} leaves "
+        f"holding >= {SP_LEAF_FLOOR} of the vector's norm (bound {SP_LEAF_NORM}) [{card}]")
+    log(f"  memory the step added at its peak: ranks {[round(p / 2**30, 3) for p in peaks]} GiB, "
+        f"unsharded {ref_train['peak_added'] / 2**30:.3f} GiB (ratio "
+        f"{[round(p / ref_train['peak_added'], 3) for p in peaks]}); ms a step (CUDA events, 3 "
+        f"steps a round): ranks {[[round(v, 2) for v in r['train']['step_ms']] for r in ranks]} "
+        f"(both ranks on one card at once, halos through host memory), unsharded "
+        f"{[round(v, 2) for v in ref_train['step_ms']]}; launches K1-K3 per rank "
+        f"{[r['train']['launches'] for r in ranks]} [{card}]")
+    expect(max(rel.values()) <= DP_RTOL and grads_rel <= DP_RTOL and stats_rel <= DP_RTOL,
+           "the spatially sharded train step disagrees with the unsharded step")
+    expect(worst_leaf <= SP_LEAF_NORM, f"a gradient leaf's norm is {worst_leaf:.3f} from the "
+                                       "unsharded step's")
+    r_rel, r_grads, r_ratios, r_worst, r_stats = against_unsharded("train_remat")
+    r_peaks = [r["train_remat"]["peak_added"] for r in ranks]
+    log(f"  with remat, against the unsharded step without it: relative differences "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in r_rel.items())}, the gradient vector "
+        f"{r_grads:.2e}, BN statistics {r_stats:.2e} (bound {DP_RTOL} each); leaf norm ratios "
+        f"{min(r_ratios):.4f} to {max(r_ratios):.4f}, counted leaves at most {r_worst:.4f} "
+        f"from 1 (bound {SP_LEAF_NORM}); peak {[round(p / 2**30, 3) for p in r_peaks]} GiB a "
+        f"rank [{card}]")
+    expect(max(r_rel.values()) <= DP_RTOL and r_grads <= DP_RTOL and r_stats <= DP_RTOL
+           and r_worst <= SP_LEAF_NORM,
+           "the spatially sharded train step with remat disagrees with the unsharded step")
+    out["timing"]["train_step"] = {
+        "relative": rel, "grads_rel": grads_rel, "stats_rel": stats_rel,
+        "leaf_norm_ratio_range": [min(all_ratios), max(all_ratios)],
+        "worst_counted_leaf": worst_leaf, "peak_added_bytes": peaks,
+        "peak_added_bytes_unsharded": ref_train["peak_added"],
+        "remat": {"relative": r_rel, "grads_rel": r_grads, "stats_rel": r_stats,
+                  "worst_counted_leaf": r_worst, "peak_added_bytes": r_peaks},
+        "step_ms": [r["train"]["step_ms"] for r in ranks],
+        "step_ms_unsharded": ref_train["step_ms"]}
+
+    # (b) the eval forward and eval step at batch 1 of the headline
+    for name in ("off", "both"):
+        ref = ref_eval[name]
+        evs = [r["eval"][name] for r in ranks]
+        fwd_rel = max(float((e[t] - ref[t]).norm() / ref[t].norm())
+                      for e in evs for t in ("locs", "scores"))
+        det1 = ref["detections"]
+        dists = [torch.cat([match_detections(e["detections"], det1),
+                            match_detections(det1, e["detections"])]) for e in evs]
+        dist = torch.cat(dists)
+        counts_equal = all(torch.equal(e["detections"]["count"], det1["count"]) for e in evs)
+        log(f"spatial eval [{name}] at batch 1, {HEADLINE['input_size']}: locs and scores "
+            f"against the unsharded forward {fwd_rel:.2e} (relative, bound {DP_RTOL}); eval "
+            f"step detections {[e['detections']['count'].tolist() for e in evs]} (unsharded "
+            f"{det1['count'].tolist()}), largest distance to the nearest of the same label "
+            f"{float(dist.max()) if dist.numel() else 0.0:.3e} (bound {DP_DET_ATOL}); launches "
+            f"K1-K3 per rank, forward {[e['forward_launches'] for e in evs]}, eval step "
+            f"{[e['step_launches'] for e in evs]} [{card}]")
+        expect(fwd_rel <= DP_RTOL, f"spatial eval [{name}]: locs/scores off by {fwd_rel:.2e}")
+        expect(counts_equal and bool((dist <= DP_DET_ATOL).all()),
+               f"spatial eval [{name}]: detections differ from the unsharded detector's")
+        want = [0, 1, 1] if name == "both" else [0, 0, 0]
+        expect(all(e["forward_launches"] == want and e["step_launches"] == [1, *want[1:]]
+                   for e in evs),
+               f"spatial eval [{name}]: launches {[e['forward_launches'] for e in evs]}, "
+               f"{[e['step_launches'] for e in evs]} (want {want} a forward and K1 once a step)")
+        out["k1"][f"spatial eval step [{name}] (per rank)"] = [e["step_launches"][0] for e in evs]
+        out["k2"][f"spatial eval forward + step [{name}] (per rank)"] = [
+            e["forward_launches"][1] + e["step_launches"][1] for e in evs]
+        out["k3"][f"spatial eval forward + step [{name}] (per rank)"] = [
+            e["forward_launches"][2] + e["step_launches"][2] for e in evs]
+        out["timing"][f"eval {name}"] = {"forward_rel": fwd_rel,
+                                         "detections_max_dist": float(dist.max())
+                                         if dist.numel() else 0.0}
+        if name == "both":
+            _, _, _, _, k2_ref = ref["calls"]["k2"][0]
+            _, _, _, maps_ref = ref["calls"]["k3"][0]
+            depth = k2_ref.shape[2] // 2
+            k2_diff = [int((e["k2_planes"] != k2_ref[:, :, s * depth:(s + 1) * depth].cpu())
+                           .sum()) for s, e in enumerate(evs)]
+            k2_err = max(float((e["k2_planes"].float() - k2_ref[:, :, s * depth:(s + 1) * depth]
+                                .cpu().float()).abs().max()) for s, e in enumerate(evs))
+            k3_err = max(float((a.float() - b.cpu().float()).abs().max() / b.float().abs().max())
+                         for e in evs for a, b in zip(e["k3_maps"], maps_ref))
+            log(f"  K2 on the haloed slab: inputs {[e['k2_input'] for e in evs]} (unsharded "
+                f"{tuple(ref['calls']['k2'][0][0].shape)}), its middle planes against the "
+                f"unsharded K2's: {k2_diff} differing elements, max abs {k2_err:.3e}; K3 past "
+                f"the cut: inputs {[e['k3_input'] for e in evs]}, its maps against the "
+                f"unsharded K3's, largest difference {k3_err:.3e} of the map's largest [{card}]")
+            out["dw_check"] = (sum(e["dw_check"][0] for e in evs),
+                               max(e["dw_check"][1] for e in evs))
+            out["tail_check"] = (max(e["tail_check"][0] for e in evs),
+                                 [v for e in evs for v in e["tail_check"][1]])
+            out["timing"]["k2_slab_vs_whole"] = {"differing": k2_diff, "max_abs": k2_err}
+            out["timing"]["k3_maps_rel"] = k3_err
+            expect(all(e["k2_input"][2] == depth + 2 for e in evs),
+                   "K2 did not take the haloed slab (planes + 2)")
+
+    # (c) cli.train --spatial_shards 2 against the 1-rank streaming run
+    ref_losses = [v for e in ref_fit["timings"]["epochs"] for v in e["train_losses"]]
+    ref_val = [h["avg_val_loss"] for h in ref_fit["history"]]
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["trainer"]["losses"], ref_losses))
+    val_rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["trainer"]["val"], ref_val))
+    log(f"cli.train --spatial_shards 2 (the recipe, {SP_RECIPE_STEPS} steps, streaming, cuDNN "
+        f"deterministic) against the 1-rank run: training losses within {loss_rel:.2e} "
+        f"(relative), avg_val_loss {[r['trainer']['val'] for r in ranks]} / {ref_val} "
+        f"({val_rel:.2e}, bound {SP_VAL_RTOL}); trainer ms per step "
+        f"{[[round(v, 1) for v in r['trainer']['ms_per_step']] for r in ranks]} / "
+        f"{[round(e['train_s'] / e['steps'] * 1e3, 1) for e in ref_fit['timings']['epochs']]}; "
+        f"cli.train {ranks[0]['trainer']['fit_s']:.1f} / {ref_fit_s:.1f} s [{card}]")
+    expect(len(ranks[0]["trainer"]["val"]) == len(ref_val) > 0 and val_rel <= SP_VAL_RTOL,
+           f"cli.train --spatial_shards 2: avg_val_loss {val_rel:.2e} from the 1-rank run's")
+    out["timing"]["trainer"] = {"losses_rel": loss_rel, "val_rel": val_rel,
+                                "ms_per_step": [r["trainer"]["ms_per_step"] for r in ranks],
+                                "fit_s": ranks[0]["trainer"]["fit_s"], "fit_s_1_rank": ref_fit_s}
+    out["k1"]["cli.train --spatial_shards 2 (per rank)"] = [r["trainer"]["launches"][0]
+                                                             for r in ranks]
+    expect(all(r["trainer"]["launches"][0] > 0 for r in ranks),
+           "cli.train --spatial_shards 2 launched no K1 on a rank")
+    log(f"spatial phase {time.perf_counter() - t_phase:.1f} s")
+    check(not failed, "phase 4h: " + "; ".join(failed))
+    return out
+
+
 def op_dispatch_us(fused, x1, card) -> dict:
     """Host microseconds a call that the registered op adds, per kernel at
     batch 1 on the operands of the fused path's forward: the wrapper (op
@@ -2921,6 +3313,8 @@ def main() -> int:
         # sliding window over a mesh
         dp = drive_data_parallel(card, counters + [qconv_cuda], Path(tmp), entry, full,
                                  cal_state)
+        # 4h. spatial sharding: two gloo ranks on a 1 x 2 data x spatial mesh
+        spatial = drive_spatial(card, counters, Path(tmp), entry, cal_state)
 
     # 5. times on the card. Each kernel, its plain version and (for K2) the
     # cuDNN sequence it replaces are timed twice: per call with CUDA events
@@ -3247,8 +3641,17 @@ def main() -> int:
                  "convs)",
     })
     kernels[3]["launches_data_parallel"] = dp["q1"]
+    # the spatial path (phase 4h): launches by run, per rank
+    kernels[0]["launches_spatial"] = spatial["k1"]
+    kernels[1]["launches_spatial"] = spatial["k2"]
+    kernels[2]["launches_spatial"] = spatial["k3"]
+    kernels[3]["launches_spatial"] = {}
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], spatial["dw_check"][1])
+    kernels[1]["mismatches"] += spatial["dw_check"][0]
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], spatial["tail_check"][0])
     log("deployment: " + json.dumps({**deploy["timing"], "card": card}))
     log("data parallel: " + json.dumps({**dp["timing"], "card": card}))
+    log("spatial: " + json.dumps({**spatial["timing"], "card": card}))
     log("full resolution: " + json.dumps({**full["timing"], "card": card}))
     log("training: " + json.dumps({
         "step_ms": train["step_ms"], "eval_step_ms_batch8": train["eval_ms"],

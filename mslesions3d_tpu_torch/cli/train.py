@@ -16,7 +16,10 @@ trains over a data mesh, one rank a card: under ``torchrun --nproc_per_node
 N -m mslesions3d_tpu_torch.cli.train --data_parallel 1 ...`` each rank takes
 ``cuda:LOCAL_RANK`` and its rows of every global batch (``-b`` is the global
 batch), rank 0 writes; without a launcher it is a world of one.
-``--spatial_shards`` > 1 raises until ROADMAP item 17c is ported. A float32
+``--spatial_shards S`` (S > 1) splits each volume's depth over S ranks of a
+data x spatial mesh (``torchrun --nproc_per_node N ... --spatial_shards S
+[--data_parallel 1]``: the data axis is N / S with ``--data_parallel 1``,
+else 1, and the world must hold the mesh); a world that does not raises. A float32
 config trains in IEEE float32: TF32 is off for convolutions and matmuls
 (``train.state.use_ieee_float32``).
 """
@@ -125,8 +128,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "--nproc_per_node N; without it a world of one); -b is the global "
                         "batch")
     p.add_argument("--spatial_shards", type=int, default=1,
-                   help="> 1 shards volume depth over that many devices "
-                        "(not ported yet: raises)")
+                   help="> 1 shards volume depth over that many ranks (a data x spatial "
+                        "mesh; launch the world with torchrun)")
     p.add_argument("--device_data_cache", type=int, default=1,
                    help="keep the materialized dataset on the device and gather "
                         "batches there (0 = stream batches from the host)")
@@ -157,7 +160,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     resolve_device(args.device, "cli.train")
     use_ieee_float32()
-    if args.data_parallel:
+    if args.data_parallel or args.spatial_shards > 1:
         # before the data module: under torchrun each rank takes its card first
         initialize_multihost(device=args.device)
 

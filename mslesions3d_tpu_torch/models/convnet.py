@@ -16,7 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import ConvNormActBlock, MaxPool3d
+from .layers import ConvNormActBlock, MaxPool3d, run_tower
 
 # (out_channels | 'maxpool3d', stride); padding is always 1.
 config_no_maxpool = (
@@ -65,7 +65,8 @@ class ConvNetBackbone(nn.Module):
     and a :class:`..layers.MaxPool3d` for a pooling one, so the ``state_dict`` keys
     are ``base.features.<i>.conv.{weight,bias}`` and
     ``base.features.<i>.adn.A.weight``. ``forward`` passes ``generator`` to
-    every block's dropout.
+    every block's dropout. Depth-split (``parallel/spatial.py``) the blocks
+    run on their slabs up to the cut (``layers.run_tower``).
     """
 
     def __init__(self, in_channels: int, feature_layers: Sequence[int] = (6, 9),
@@ -84,10 +85,6 @@ class ConvNetBackbone(nn.Module):
         self.features = nn.ModuleList(layers)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> dict:
-        wanted = set(self.feature_layers)
-        features = {}
-        for i, layer in enumerate(self.features):
-            x = layer(x, generator)
-            if i in wanted:
-                features[i] = x
+        _, features = run_tower(self.features, x, set(self.feature_layers),
+                                lambda layer, x: layer(x, generator))
         return features

@@ -23,10 +23,16 @@ Inside ``parallel.data_parallel(mesh)`` (a data-parallel train step) the
 training BatchNorm takes its statistics over the global batch, summed over
 the mesh's ranks, as the JAX package's sharded program does, and the
 ConvNet's dropout draws the global batch's mask and keeps this rank's rows.
+Under a data x spatial mesh (``parallel/spatial.py``) each rank holds a depth
+slab: every 3^3 conv and the max-pool take their neighbours' boundary planes
+(``parallel.collectives.halo``) and run with depth padding 0, instance norm
+sums over the spatial group, dropout keeps the rank's slab of the global
+mask, and :func:`run_tower` gathers the depth at the cut.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 
@@ -36,7 +42,17 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.depthwise import fold_bn, fused_depthwise_bn_relu_cuda
-from ..parallel.collectives import all_reduce_sum, current_mesh, differentiable_all_reduce_sum
+from ..parallel.collectives import (
+    all_reduce_sum,
+    current_depth,
+    current_split,
+    current_stats_group,
+    differentiable_all_reduce_sum,
+    gather_depth,
+    halo,
+    past_the_cut,
+    under_split,
+)
 
 INIT_SCHEMES = ("torch", "flax", "kaiming_relu")
 # standard deviation of a standard normal truncated to (-2, 2)
@@ -147,7 +163,7 @@ class BatchNorm3d(nn.Module):
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         dims = (0, 2, 3, 4)
-        mesh = current_mesh()
+        mesh = current_stats_group()
         if mesh is not None:  # the global batch's statistics: sums over the ranks
             count = x32.numel() // x32.shape[1] * mesh.size
             c = x32.shape[1]
@@ -210,7 +226,7 @@ class ConvBNReLU(nn.Sequential):
         conv, bn = self[0], self[1]
         if self.training:
             return conv_bn_relu_train(conv, bn, x)
-        return torch.relu(bn(conv(x)))
+        return torch.relu(bn(conv3d(conv, x)))
 
 
 class DepthwiseSeparableBlock(nn.Module):
@@ -256,14 +272,18 @@ class DepthwiseSeparableBlock(nn.Module):
                  and self.conv1.in_channels % 128 == 0)
         if fused:
             gamma, beta = self.bn1.folded()
+            depth = current_depth()
+            # depth-split: K2 on the haloed slab (planes + 2), its middle planes kept
+            x = x if depth is None else halo(x, depth, 1, 1)
             x = fused_depthwise_bn_relu_cuda(
                 x.contiguous(memory_format=torch.channels_last_3d), self._dw_weights(),
                 gamma, beta,
             )
+            x = x if depth is None else x[:, :, 1:-1]
         elif self.training:
             x = conv_bn_relu_train(self.conv1, self.bn1, x)
         else:
-            x = torch.relu(self.bn1(self.conv1(x)))
+            x = torch.relu(self.bn1(conv3d(self.conv1, x)))
         if self.training:
             return conv_bn_relu_train(self.conv2, self.bn2, x)
         return torch.relu(self.bn2(self.conv2(x)))
@@ -293,7 +313,9 @@ class _ConvBNReLU(torch.autograd.Function):
     off.
 
     Under a data mesh (``parallel.data_parallel``) every rank holds as many
-    samples, and the per-channel sums are summed over the ranks: the count
+    samples (and, depth-split, as many planes), and the per-channel sums
+    are summed over the split's statistics view, so ``count`` is the global
+    voxels': the count
     and sum of z (and the fast variance's sum of squares) in one reduction,
     the centred sum of squares in a second, after the global mean; in the
     backward the two sums of BN's gradient. The gradients of gamma and beta
@@ -301,18 +323,19 @@ class _ConvBNReLU(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, weight, gamma, beta, conv, bn, keep):
+    def forward(ctx, x, weight, gamma, beta, conv, bn, keep, padding):
         n, c = x.shape[0], weight.shape[0]
         spatial = [(size + 2 * p - d * (k - 1) - 1) // s + 1 for size, k, s, p, d in zip(
-            x.shape[2:], weight.shape[2:], conv.stride, conv.padding, conv.dilation)]
+            x.shape[2:], weight.shape[2:], conv.stride, padding, conv.dilation)]
         chunks = _chunks(n, max(x[0].numel(), c * math.prod(spatial)))
         shape, fmt = (n, c, *spatial), torch.channels_last_3d
+        conv = _ConvSpec(conv.stride, padding, conv.dilation, conv.groups)
         z = None
         if keep:
             z = torch.empty(shape, dtype=x.dtype, device=x.device, memory_format=fmt)
             for sl in chunks:
                 z[sl] = _conv(conv, x[sl], weight)
-        mesh = current_mesh()
+        mesh = current_stats_group()
         ctx.conv, ctx.bn, ctx.chunks, ctx.mesh = conv, bn, chunks, mesh
         ctx.count = n * math.prod(spatial) * (1 if mesh is None else mesh.size)
         dims = (0, 2, 3, 4)
@@ -386,7 +409,7 @@ class _ConvBNReLU(torch.autograd.Function):
             elif need_x:  # one chunk
                 grad_x = gx
         return (grad_x, grad_w.to(weight.dtype), sum_gx.to(gamma.dtype),
-                sum_g.to(beta.dtype), None, None, None)
+                sum_g.to(beta.dtype), None, None, None, None)
 
 
 def _chunks(n: int, per_sample: int) -> list:
@@ -395,8 +418,36 @@ def _chunks(n: int, per_sample: int) -> list:
     return [slice(i, min(i + step, n)) for i in range(0, n, step)]
 
 
-def _conv(conv: nn.Conv3d, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+# a conv's stride, padding (the depth's 0 on a haloed slab), dilation and groups
+_ConvSpec = collections.namedtuple("_ConvSpec", "stride padding dilation groups")
+
+
+def _conv(conv, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.conv3d(x, weight, None, conv.stride, conv.padding,
+                                      conv.dilation, conv.groups)
+
+
+def depth_halo(x: torch.Tensor, kernel: int, stride: int, padding, fill: float = 0.0):
+    """(input, padding) of a window over depth (``kernel``, ``stride``,
+    ``padding``; H, W as given) on this rank: under a depth split the slab
+    with the planes the window reaches past it (``padding`` before, ``kernel
+    - stride - padding`` after: the slab starts at a multiple of ``stride``)
+    and depth padding 0; else ``x`` and ``padding`` as they were."""
+    depth = current_depth()
+    padding = tuple(padding)
+    if depth is None:
+        return x, padding
+    lo, hi = padding[0], kernel - stride - padding[0]
+    if hi < 0:
+        raise ValueError(f"a depth window of {kernel} at stride {stride}, padding {padding[0]} "
+                         "skips planes: it cannot run depth-split")
+    return halo(x, depth, lo, hi, fill), (0, *padding[1:])
+
+
+def conv3d(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``; depth-split, on the haloed slab (:func:`depth_halo`)."""
+    x, padding = depth_halo(x, conv.kernel_size[0], conv.stride[0], conv.padding)
+    return torch.nn.functional.conv3d(x, conv.weight, conv.bias, conv.stride, padding,
                                       conv.dilation, conv.groups)
 
 
@@ -411,8 +462,10 @@ def _chunk_z(conv, x, weight, z, sl):
 def conv_bn_relu_train(conv: nn.Conv3d, bn: BatchNorm3d, x: torch.Tensor,
                        keep: bool = True) -> torch.Tensor:
     """relu(bn(conv(x))) in training mode through :class:`_ConvBNReLU`; equal,
-    to float32 rounding, to the plain ``torch.relu(bn(conv(x)))``."""
-    return _ConvBNReLU.apply(x, conv.weight, bn.weight, bn.bias, conv, bn, keep)
+    to float32 rounding, to the plain ``torch.relu(bn(conv(x)))``. Depth-split,
+    the conv runs on the haloed slab (:func:`depth_halo`)."""
+    x, padding = depth_halo(x, conv.kernel_size[0], conv.stride[0], conv.padding)
+    return _ConvBNReLU.apply(x, conv.weight, bn.weight, bn.bias, conv, bn, keep, padding)
 
 
 def checkpointed(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -430,22 +483,26 @@ def checkpointed(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     would reject in a saved input. The recompute runs with every
     ``BatchNorm3d``'s ``update_stats`` off, so the running statistics move
     once; its batch statistics are those of the first pass, recomputed from
-    the same input by the same deterministic reduction. ``checkpoint``
-    restores no RNG here (``preserve_rng_state=False``): no MobileNet block
-    draws at random.
+    the same input by the same deterministic reduction. It also runs under
+    the split of the first pass (``parallel.collectives.under_split``): the
+    backward runs outside :func:`run_tower`'s cut, and a block past the cut
+    must not take halos there. ``checkpoint`` restores no RNG here
+    (``preserve_rng_state=False``): no MobileNet block draws at random.
     """
     if isinstance(module, ConvBNReLU):
         return conv_bn_relu_train(module[0], module[1], x, keep=False)
     named = list(module.named_parameters())
     names = [n for n, _ in named]
     bns = [m for m in module.modules() if isinstance(m, BatchNorm3d)]
+    split = current_split()
 
     @contextlib.contextmanager
     def recompute_context():
         for bn in bns:
             bn.update_stats = False
         try:
-            yield
+            with under_split(split):
+                yield
         finally:
             for bn in bns:
                 bn.update_stats = True
@@ -474,7 +531,9 @@ class ConvNormActBlock(nn.Module):
     when training with rate > 0), so the step's explicit generator decides
     it. Under a data mesh every rank draws the global batch's mask (its
     ranks' rows in rank order) and keeps its own rows, so the W ranks
-    together drop what one device drops on the global batch.
+    together drop what one device drops on the global batch. Depth-split,
+    the mask is drawn for the whole depth and the rank keeps its slab, and
+    the norm's per-sample sums run over the spatial group.
     """
 
     def __init__(self, in_features: int, features: int, strides=1, dropout_rate: float = 0.1,
@@ -491,28 +550,49 @@ class ConvNormActBlock(nn.Module):
             self.adn["A"].weight.fill_(self.prelu_init)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.conv(x)
+        x = conv3d(self.conv, x)
         x32 = x.float()
-        var, mean = torch.var_mean(x32, (2, 3, 4), correction=0, keepdim=True)
+        depth = current_depth()
+        if depth is None:
+            var, mean = torch.var_mean(x32, (2, 3, 4), correction=0, keepdim=True)
+        else:  # the sample's sums over the spatial group
+            count = x32[0, 0].numel() * depth.size
+            mean = differentiable_all_reduce_sum(x32.sum((2, 3, 4), keepdim=True), depth) / count
+            var = differentiable_all_reduce_sum(
+                ((x32 - mean) ** 2).sum((2, 3, 4), keepdim=True), depth) / count
         x = ((x32 - mean) * torch.rsqrt(var + 1e-5)).to(x.dtype)
         if self.training and self.dropout_rate > 0.0:
             if generator is None:
                 raise ValueError("ConvNormActBlock: dropout in training needs a generator")
             keep = 1.0 - self.dropout_rate
-            mesh, n = current_mesh(), x.shape[0]
-            if mesh is None:
-                mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-            else:
-                mask = torch.rand((n * mesh.size, *x.shape[1:]), generator=generator,
-                                  device=x.device)[mesh.rank * n:(mesh.rank + 1) * n] < keep
+            mask = _global_mask(x.shape, current_split(), generator, x.device) < keep
             x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
         alpha = self.adn["A"].weight.to(x.dtype)
         return torch.where(x >= 0, x, alpha * x)
 
 
+def _global_mask(shape, split, generator, device) -> torch.Tensor:
+    """Uniform draws for the global batch's activation of local ``shape``
+    (N, C, D, H, W): all ranks' rows and the whole depth, of which this rank
+    keeps its rows and its slab."""
+    rows = None if split is None else split.rows
+    depth = None if split is None else split.depth
+    n, d = shape[0], shape[2]
+    whole = (n * (1 if rows is None else rows.size), shape[1],
+             d * (1 if depth is None else depth.size), *shape[3:])
+    u = torch.rand(whole, generator=generator, device=device)
+    if rows is not None:
+        u = u[rows.rank * n:(rows.rank + 1) * n]
+    if depth is not None:
+        u = u[:, :, depth.rank * d:(depth.rank + 1) * d]
+    return u
+
+
 def max_pool_3d(x: torch.Tensor) -> torch.Tensor:
-    """MaxPool3d(k3, s2, p1) with -inf padding (lesions3d/base_network.py:79-81)."""
-    return torch.nn.functional.max_pool3d(x, 3, 2, 1)
+    """MaxPool3d(k3, s2, p1) with -inf padding (lesions3d/base_network.py:79-81);
+    depth-split, on the slab with its left neighbour's last plane."""
+    x, padding = depth_halo(x, 3, 2, (1, 1, 1), fill=-math.inf)
+    return torch.nn.functional.max_pool3d(x, 3, 2, padding)
 
 
 class MaxPool3d(nn.Module):
@@ -521,3 +601,57 @@ class MaxPool3d(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         return max_pool_3d(x)
+
+
+def depth_stride(layer: nn.Module) -> int:
+    """The depth stride of a backbone layer: its first conv's, or the max-pool's 2."""
+    if isinstance(layer, MaxPool3d):
+        return 2
+    return next(m for m in layer.modules() if isinstance(m, nn.Conv3d)).stride[0]
+
+
+def run_tower(layers, x: torch.Tensor, wanted, call):
+    """Runs ``layers`` in order (``call(layer, x) -> x``); returns (the last
+    output, {i: output of layer i for i in wanted}), whole in depth.
+
+    Depth-split (``parallel/spatial.py``), layer i runs on the slab while its
+    input depth and its output depth divide 2 n_spatial; at the first layer
+    that fails this, its input and the feature maps so far are gathered over
+    the spatial group (``gather_depth``) and the rest runs whole, past the
+    cut. A tower that never reaches its cut gathers at the end.
+    """
+    depth = current_depth()
+    features = {}
+    if depth is None:
+        for i, layer in enumerate(layers):
+            x = call(layer, x)
+            if i in wanted:
+                features[i] = x
+        return x, features
+
+    def gather_all():
+        nonlocal x, features
+        done = {}
+        for t in (x, *features.values()):
+            if id(t) not in done:
+                done[id(t)] = gather_depth(t, depth)
+        x = done[id(x)]
+        features = {i: done[id(t)] for i, t in features.items()}
+
+    total, even = x.shape[2] * depth.size, 2 * depth.size
+    with contextlib.ExitStack() as stack:
+        for i, layer in enumerate(layers):
+            if depth is not None:
+                out = -(-total // depth_stride(layer))
+                if total % even or out % even:
+                    gather_all()
+                    stack.enter_context(past_the_cut())
+                    depth = None
+                else:
+                    total = out
+            x = call(layer, x)
+            if i in wanted:
+                features[i] = x
+        if depth is not None:
+            gather_all()
+    return x, features

@@ -7,6 +7,10 @@ Counterpart of ``mslesions3d_tpu/models/mobilenet.py``:
                   of each group carrying the group stride
   truncation    : the tower is cut right after index max(feature_layers)
   first_stride  : (2,2,2) for cube inputs, (1,2,2) otherwise
+
+Depth-split (``parallel/spatial.py``) the blocks run on their slabs up to
+the cut (``layers.run_tower``); the fused tail always takes the whole input,
+so with ``use_pallas_tail`` the cut comes at its first block at the latest.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 from torch import nn
 
 from ..kernels.tail import fused_tail_cuda
-from .layers import ConvBNReLU, DepthwiseSeparableBlock, checkpointed
+from .layers import ConvBNReLU, DepthwiseSeparableBlock, checkpointed, run_tower
 
 # stem_channels, then (channels, n_repeat, stride) groups
 config_mobilenet = (
@@ -117,11 +121,8 @@ class MobileNetBackbone(nn.Module):
         fuse_tail = self.fuse_tail and not self.training
         remat = self.remat and self.training and torch.is_grad_enabled()
         head = self.features[: self.tail_from] if fuse_tail else self.features
-        features = {}
-        for i, layer in enumerate(head):
-            x = checkpointed(layer, x) if remat else layer(x)
-            if i in wanted:
-                features[i] = x
+        x, features = run_tower(head, x, wanted,
+                                lambda layer, x: checkpointed(layer, x) if remat else layer(x))
         if fuse_tail:
             if x.shape[1] % 128 != 0:
                 raise ValueError(

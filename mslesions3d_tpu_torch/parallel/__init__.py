@@ -1,16 +1,34 @@
-"""Data parallelism over cards and hosts (counterpart of ``mslesions3d_tpu/parallel``).
+"""Data parallelism and spatial sharding over cards and hosts (counterpart of
+``mslesions3d_tpu/parallel``).
 
-Ported: the data mesh and the multi-host helpers. Not ported yet: spatial
-sharding (``parallel/spatial.py``, ROADMAP item 17c) and tensor parallelism
-(``parallel/tensor.py``, item 17d).
+Ported: the data mesh, the multi-host helpers and spatial sharding (a data x
+spatial mesh, the volume depth split over cards with halo-exchanged convs,
+``spatial.py``). Not ported yet: tensor parallelism (``parallel/tensor.py``,
+ROADMAP item 17d).
 """
 
-from .collectives import all_reduce_sum, broadcast, current_mesh, data_parallel, gather_rows
+from .collectives import (
+    Split,
+    all_reduce_sum,
+    broadcast,
+    current_split,
+    current_stats_group,
+    data_parallel,
+    exchange_rows,
+    gather_depth,
+    gather_rows,
+    halo,
+    past_the_cut,
+)
 from .mesh import (
     DataMesh,
+    SpatialMesh,
     local_row_runs,
     make_mesh,
+    make_mesh_2d,
     replicate,
+    row_runs,
+    rows_split,
     shard_batch,
     take_runs,
     visible_devices,
@@ -21,10 +39,19 @@ from .multihost import (
     process_batch_slice,
     shard_global_batch,
 )
+from .spatial import (
+    batch_sharding_fn,
+    depth_slab,
+    make_spatially_sharded_forward,
+    shard_batch_spatial,
+)
 
 __all__ = [
-    "all_reduce_sum", "broadcast", "current_mesh", "data_parallel", "gather_rows", "DataMesh",
-    "local_row_runs", "make_mesh", "replicate", "shard_batch", "take_runs",
-    "visible_devices", "dcn_friendly_mesh", "initialize_multihost", "process_batch_slice",
-    "shard_global_batch",
+    "Split", "all_reduce_sum", "broadcast", "current_split", "current_stats_group", "data_parallel",
+    "exchange_rows", "gather_depth", "gather_rows", "halo", "past_the_cut", "DataMesh",
+    "SpatialMesh", "local_row_runs", "make_mesh", "make_mesh_2d", "replicate", "row_runs",
+    "rows_split", "shard_batch",
+    "take_runs", "visible_devices", "dcn_friendly_mesh", "initialize_multihost",
+    "process_batch_slice", "shard_global_batch", "batch_sharding_fn", "depth_slab",
+    "make_spatially_sharded_forward", "shard_batch_spatial",
 ]

@@ -11,6 +11,9 @@ normaliser and the gradients over the group (``train/steps.py``), and the
 state starts equal on every rank (:func:`replicate`). A world of one rank
 needs no launcher: :func:`make_mesh` forms it in the process, the JAX
 package's one-device mesh.
+
+:func:`make_mesh_2d` lays the world out as a data x spatial grid
+(:class:`SpatialMesh`, ``parallel/spatial.py``), with a group for each axis.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .collectives import broadcast
+from .collectives import Split, broadcast
 from .multihost import default_backend, initialize_multihost, local_rank
 
 
@@ -38,6 +41,79 @@ class DataMesh:
     def describe(self) -> str:
         return (f"data-parallel mesh: world size {self.size}, backend {self.backend}, "
                 f"rank {self.rank} on {self.device}")
+
+    @property
+    def rows(self) -> "DataMesh":
+        """The view over which the batch rows are split: the mesh itself."""
+        return self
+
+    def split(self, rows: bool = True) -> Split:
+        """The layers' view of a step under this mesh: rows split over it."""
+        if not rows:
+            raise ValueError("a data mesh splits the batch rows over its ranks: rows=False "
+                             "has no meaning there")
+        return Split(rows=self)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialMesh:
+    """The world as a data x spatial grid: rank = d n_spatial + s, as the JAX
+    package's ``np.reshape(n_data, n_spatial)`` lays out its devices.
+
+    ``world`` is the whole grid, ``data`` the ranks that share this rank's s
+    (over which the batch rows are split; its rank is d) and ``spatial`` the
+    ranks that share its d (over which the volume depth is split; its rank
+    is s). Each is a :class:`DataMesh` over its own group. ``rank``,
+    ``size``, ``group``, ``device`` and ``backend`` are the world's, so a
+    broadcast or a sum over the mesh is one over the world.
+    """
+
+    world: DataMesh
+    data: DataMesh
+    spatial: DataMesh
+
+    @property
+    def n_data(self) -> int:
+        return self.data.size
+
+    @property
+    def n_spatial(self) -> int:
+        return self.spatial.size
+
+    @property
+    def rank(self) -> int:
+        return self.world.rank
+
+    @property
+    def size(self) -> int:
+        return self.world.size
+
+    @property
+    def group(self):
+        return self.world.group
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def backend(self) -> str:
+        return self.world.backend
+
+    @property
+    def rows(self) -> DataMesh:
+        """The view over which the batch rows are split: the data group."""
+        return self.data
+
+    def describe(self) -> str:
+        return (f"data x spatial mesh {self.n_data} x {self.n_spatial}: world size "
+                f"{self.size}, backend {self.backend}, rank {self.rank} (d {self.data.rank}, "
+                f"s {self.spatial.rank}) on {self.device}")
+
+    def split(self, rows: bool = True) -> Split:
+        """The layers' view of a step under this mesh: depth split over the
+        spatial group and, with ``rows``, the batch rows over the data group."""
+        return Split(rows=self.data if rows else None, depth=self.spatial, both=self.world)
 
 
 def make_mesh(n_devices: int | None = None, device="cuda", backend: str | None = None) -> DataMesh:
@@ -68,6 +144,33 @@ def make_mesh(n_devices: int | None = None, device="cuda", backend: str | None =
     return DataMesh(dist.group.WORLD, dist.get_rank(), size, device, dist.get_backend())
 
 
+def make_mesh_2d(n_data: int, n_spatial: int, device="cuda",
+                 backend: str | None = None) -> SpatialMesh:
+    """The data x spatial mesh of this process over the world (see
+    :func:`make_mesh` for ``device`` and ``backend``).
+
+    The world must hold exactly ``n_data * n_spatial`` ranks: a world of
+    another size raises, naming the world to launch. Every rank forms every
+    group, in the same order.
+    """
+    world = make_mesh(device=device, backend=backend)
+    n = n_data * n_spatial
+    if world.size != n:
+        raise ValueError(f"a data x spatial mesh of {n_data} x {n_spatial} needs a world of {n} "
+                         f"ranks, and this one has {world.size}: launch {n} (torchrun "
+                         f"--nproc_per_node {n}, one rank a card)")
+    d, s = divmod(world.rank, n_spatial)
+    spatial_groups = [dist.new_group([i * n_spatial + j for j in range(n_spatial)])
+                      for i in range(n_data)]
+    data_groups = [dist.new_group([i * n_spatial + j for i in range(n_data)])
+                   for j in range(n_spatial)]
+    return SpatialMesh(
+        world=world,
+        data=DataMesh(data_groups[s], d, n_data, world.device, world.backend),
+        spatial=DataMesh(spatial_groups[d], s, n_spatial, world.device, world.backend),
+    )
+
+
 def visible_devices(device="cuda") -> tuple:
     """Every visible device of ``device``'s kind: each card, or the one CPU.
     The sliding window's mesh over all devices (the JAX package's
@@ -77,9 +180,9 @@ def visible_devices(device="cuda") -> tuple:
     return (torch.device("cpu"),)
 
 
-def local_row_runs(batch: int, mesh, grad_accum: int = 1) -> list:
-    """The rows of a global batch of ``batch`` that this rank holds, as
-    slices in order (one a micro-batch).
+def local_row_runs(batch: int, mesh, grad_accum: int = 1, rank: int | None = None) -> list:
+    """The rows of a global batch of ``batch`` that this rank (or ``rank``)
+    holds, as slices in order (one a micro-batch).
 
     With ``grad_accum`` micro-batches, micro-batch i is the global rows
     [i m, (i + 1) m) (m = batch / grad_accum), as in the JAX package's step,
@@ -87,7 +190,8 @@ def local_row_runs(batch: int, mesh, grad_accum: int = 1) -> list:
     micro-batch i is its i-th run of rows. A micro-batch that does not
     divide over the ranks raises.
     """
-    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    size, here = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    rank = here if rank is None else rank
     if batch % size:
         raise ValueError(f"global batch {batch} is not divisible by the mesh's {size} ranks")
     if batch % grad_accum:
@@ -100,6 +204,27 @@ def local_row_runs(batch: int, mesh, grad_accum: int = 1) -> list:
     return [slice(i * m + rank * share, i * m + (rank + 1) * share) for i in range(grad_accum)]
 
 
+def rows_split(batch: int, mesh: SpatialMesh, grad_accum: int = 1) -> bool:
+    """Whether a data x spatial step splits the rows of a global batch of
+    ``batch`` over the data ranks: when each micro-batch divides over them,
+    else (the JAX package's ``pin_micro``) every data rank runs every row."""
+    if batch % grad_accum:
+        raise ValueError(f"batch size {batch} is not divisible by grad_accum={grad_accum}")
+    return (batch // grad_accum) % mesh.n_data == 0
+
+
+def row_runs(batch: int, mesh, grad_accum: int = 1) -> list:
+    """The rows of a global batch of ``batch`` that this rank takes to its
+    card (:func:`local_row_runs` over ``mesh.rows``): under a data x spatial
+    mesh, its data rank's share of every micro-batch, or its data rank's
+    block of the batch where a micro-batch does not divide over the data
+    ranks (the step gathers the whole batch then: :func:`rows_split`)."""
+    if isinstance(mesh, SpatialMesh):
+        return local_row_runs(batch, mesh.data,
+                              grad_accum if rows_split(batch, mesh, grad_accum) else 1)
+    return local_row_runs(batch, mesh, grad_accum)
+
+
 def take_runs(v, runs: list):
     """The rows ``runs`` (slices) of an array or tensor, by slicing: no index
     tensor goes to the device, so nothing waits for the card's queue."""
@@ -110,11 +235,13 @@ def take_runs(v, runs: list):
 
 
 def shard_batch(batch: dict, mesh, grad_accum: int = 1) -> dict:
-    """This rank's rows (:func:`local_row_runs`) of every array or tensor of
-    a global batch dict; other entries (subject id lists) pass through. The
-    rows stay where they were: the steps move them to the state's device."""
+    """This rank's rows (:func:`row_runs`) of every array or tensor of a
+    global batch dict, whole volumes under a data x spatial mesh too (the
+    steps keep the depth slab); other entries (subject id lists) pass
+    through. The rows stay where they were: the steps move them to the
+    state's device."""
     n = next(v.shape[0] for v in batch.values() if isinstance(v, (np.ndarray, torch.Tensor)))
-    runs = local_row_runs(n, mesh, grad_accum)
+    runs = row_runs(n, mesh, grad_accum)
     return {k: take_runs(v, runs) if isinstance(v, (np.ndarray, torch.Tensor)) else v
             for k, v in batch.items()}
 

@@ -41,9 +41,10 @@ rank a card, under ``torchrun``, or a world of one without it), as the JAX
 package's data mesh does. The dataset is sharded over the ranks' cards
 (``n_local = ceil(n_train / W)`` volumes a rank, padded with wrap-around
 duplicates; each rank materializes only its shard) and every epoch each
-rank shuffles its shard, from the JAX package's index stream; with
-``grad_accum > 1`` or without the cache, every rank streams its rows of each
-global batch. A batch (or micro-batch) that does not divide over the ranks
+rank shuffles its shard, from the JAX package's index stream (with
+``grad_accum > 1`` the ranks then exchange rows so that each holds its share
+of every micro-batch); without the cache, every rank streams its rows of
+each global batch. A batch (or micro-batch) that does not divide over the ranks
 raises before anything is loaded. Validation streams
 the same way; its losses are the global batch's and the detections and
 ground truth of every rank are gathered for the host mAP. Rank 0 alone
@@ -51,18 +52,30 @@ writes checkpoints, ``metrics.jsonl``, TensorBoard and the printed lines;
 every rank resumes from the same checkpoint, and the steps keep the states
 equal, so early stopping, ``max_steps`` and the non-finite abort end every
 rank on the same step (the decision to stop is rank 0's, broadcast).
-``spatial_shards > 1`` is not ported yet (ROADMAP item 17c) and raises
-``NotImplementedError``.
+
+``spatial_shards`` = S > 1 trains on a data x spatial mesh
+(``parallel.make_mesh_2d``), as the JAX package does: the world (torchrun's)
+must divide by S, the config's depth too, and the data axis is the world's
+ranks / S with ``data_parallel`` (else 1). A batch that does not divide
+over the data axis raises, naming the world to launch (the JAX package
+caps the axis by ``gcd`` and leaves the other devices idle; here the world
+is the mesh), and so does a world larger than the mesh. The batches
+stream, as the JAX package keeps no device cache under a spatial mesh;
+each rank takes its rows of every batch (``parallel.shard_batch``) and the
+steps keep its depth slab.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.augment import AugmentConfig
 from ..data.prefetch import prefetch_batches
@@ -70,7 +83,7 @@ from ..models.ssd3d import SSD3D, SSD3DConfig, model_priors
 from ..ops import metrics as metrics_lib
 from ..ops.nms import detections_to_lists
 from ..parallel.collectives import broadcast, gather_rows
-from ..parallel.mesh import local_row_runs, make_mesh, replicate, shard_batch
+from ..parallel.mesh import make_mesh, make_mesh_2d, replicate, row_runs, shard_batch
 from ..sliding_window import make_sliding_window_detector
 from .checkpoints import CheckpointManager, load_checkpoint
 from .logging import MetricsLogger
@@ -104,7 +117,8 @@ class TrainerConfig:
     # one rank a card over a data mesh (parallel/mesh.py); a world of one
     # outside torchrun
     data_parallel: bool = False
-    spatial_shards: int = 1  # > 1 not ported yet: raises (ROADMAP item 17c)
+    # > 1 splits the volume depth over that many ranks (a data x spatial mesh)
+    spatial_shards: int = 1
     # train on random lesion-biased patches of config.input_size cropped on
     # the device from full-resolution volumes (data/patches.py); validation
     # uses a deterministic lesion-centred crop. The datamodule must yield
@@ -138,11 +152,29 @@ class TrainerConfig:
     device: str = "cuda"  # the card unless the caller asks for the CPU
 
 
-def _check_ported(cfg: TrainerConfig) -> None:
-    if cfg.spatial_shards > 1:
-        raise NotImplementedError(
-            "spatial_shards > 1 (volume depth sharded over cards) is not ported yet "
-            "(ROADMAP item 17c)")
+def _make_trainer_mesh(cfg: TrainerConfig, config: SSD3DConfig, datamodule):
+    """The mesh of a fit: none, the data mesh, or the data x spatial mesh of
+    ``spatial_shards`` > 1 with the JAX package's checks and messages (a
+    world that cannot hold the mesh raises before any group is formed)."""
+    spatial = max(1, int(cfg.spatial_shards))
+    if spatial == 1:
+        return make_mesh(device=cfg.device) if cfg.data_parallel else None
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    if world % spatial:
+        raise ValueError(f"spatial_shards={spatial} does not divide the {world} ranks of the "
+                         "world (torchrun --nproc_per_node)")
+    if config.input_size[0] % spatial:
+        raise ValueError(f"volume depth {config.input_size[0]} is not divisible by "
+                         f"spatial_shards={spatial}")
+    n_data = world // spatial if cfg.data_parallel else 1
+    batch_size = datamodule.batch_size
+    if batch_size % n_data:
+        fits = math.gcd(n_data, batch_size) * spatial
+        raise ValueError(f"batch {batch_size} is not divisible by the data axis's {n_data} ranks "
+                         f"(a world of {world} / spatial_shards={spatial}): launch {fits} ranks "
+                         f"(torchrun --nproc_per_node {fits})")
+    return make_mesh_2d(n_data, spatial, device=cfg.device)
 
 
 class _NoLogger:
@@ -219,8 +251,8 @@ class Trainer:
         the state, so it waits for the card) and its training losses.
         """
         cfg = self.cfg
-        _check_ported(cfg)
-        mesh = make_mesh(device=cfg.device) if cfg.data_parallel else None
+        mesh = _make_trainer_mesh(cfg, config, datamodule)
+        spatial = cfg.spatial_shards > 1
         lead = mesh is None or mesh.rank == 0  # the rank that writes and prints
         verbose = cfg.verbose and lead
         if mesh is not None and cfg.verbose:
@@ -240,7 +272,7 @@ class Trainer:
         if mesh is not None:
             state = replicate(state, mesh)
             # every path shards each global batch: one that does not divide raises now
-            local_row_runs(datamodule.batch_size, mesh, grad_accum)
+            row_runs(datamodule.batch_size, mesh, grad_accum)
 
         kw = dict(hard_negative_mining=cfg.hard_negative_mining,
                   grad_accum=grad_accum, patch_training=cfg.patch_training,
@@ -268,15 +300,17 @@ class Trainer:
         )  # duck-typed custom datamodules stream
         materialize_s = 0.0
         sharded_cache = False
-        if mesh is not None:
+        if spatial:
+            if verbose:
+                print("[data] streaming each rank's rows of every batch (a spatial mesh keeps "
+                      "no device cache); the steps keep its depth slab")
+        elif mesh is not None:
             # the dataset sharded over the ranks' cards: rank r holds the
             # padded rows [r n_local, (r + 1) n_local), materialized alone
             B, n_train = datamodule.batch_size, len(getattr(datamodule, "trainsubs", ()))
             why_not = ("the data module cannot materialize" if not can_materialize
                        else "device_data_cache is off" if not cfg.device_data_cache
-                       else f"fewer than {B} training volumes" if n_train < B
-                       else f"grad_accum={grad_accum} (micro-batches span the shards)"
-                       if grad_accum > 1 and mesh.size > 1 else None)
+                       else f"fewer than {B} training volumes" if n_train < B else None)
             if why_not is None:
                 n_local = -(-n_train // mesh.size)
                 mine = [datamodule.trainsubs[i % n_train]
@@ -351,11 +385,12 @@ class Trainer:
 
         def record(det, boxes, labels, box_mask, batch_mask, prefix, accum):
             """Queue a batch for the epoch's detection metrics; under a mesh
-            every rank's rows are gathered first, and rank 0 keeps them."""
+            every rank's rows are gathered first (over the data axis), and
+            rank 0 keeps them."""
             if mesh is not None:
                 rows = gather_rows({**{f"det.{k}": v for k, v in det.items()}, "boxes": boxes,
                                     "labels": labels, "box_mask": box_mask,
-                                    "batch_mask": batch_mask}, mesh)
+                                    "batch_mask": batch_mask}, mesh.rows)
                 det = {k[4:]: v for k, v in rows.items() if k.startswith("det.")}
                 boxes, labels, box_mask, batch_mask = (
                     rows[k] for k in ("boxes", "labels", "box_mask", "batch_mask"))

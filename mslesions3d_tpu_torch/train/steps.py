@@ -24,9 +24,21 @@ gradients, losses and counts are summed over the ranks, so the update, the
 metrics and the non-finite select are the same on every rank. Detections
 stay per rank, for the caller to gather (``parallel.gather_rows``).
 
+Spatial sharding: given a data x spatial mesh (``parallel.make_mesh_2d``),
+a step takes this rank's rows as whole volumes (``parallel.shard_batch``:
+its data rank's share of every micro-batch), which the patch crop and the
+augmentation (flips, rot90 and the affine all mix depth) take; then it
+keeps its depth slab. Where a micro-batch does not divide over the data
+ranks, the rows are its data rank's block and the step first gathers the
+whole batch over the data group: every data rank runs every row, as the
+JAX package's ``pin_micro`` does. The forward runs depth-split up to the
+cut (``parallel/spatial.py``); the losses and positives are summed over the
+data group, and each rank's loss is divided by n_spatial (and by n_data
+where the rows are whole on every data rank) before the backward, so the
+gradients summed over the world count the replicated part once.
+
 The JAX package's whole-epoch scan is a TPU dispatch workaround that gives
-the same numbers as stepping; the port steps. Spatial sharding (ROADMAP
-item 17c) is not ported yet.
+the same numbers as stepping; the port steps.
 """
 
 from __future__ import annotations
@@ -46,8 +58,9 @@ from ..data.patches import (
 from ..models.losses import multibox_loss_from_config
 from ..models.ssd3d import SSD3D, SSD3DConfig
 from ..ops.nms import detect_objects
-from ..parallel.collectives import all_reduce_sum, data_parallel
-from ..parallel.mesh import local_row_runs
+from ..parallel.collectives import all_reduce_sum, data_parallel, exchange_rows, gather_rows
+from ..parallel.mesh import SpatialMesh, local_row_runs, rows_split
+from ..parallel.spatial import depth_slab
 from .state import TrainState
 
 
@@ -124,25 +137,27 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
     augmentation, the JAX package's metric), nonfinite, nonfinite_streak and
     grad_norm (over every parameter).
 
-    With a data ``mesh`` of W ranks the batch is this rank's rows of a global
-    batch of W x its size (``parallel.local_row_runs``: with ``grad_accum`` its
-    share of every micro-batch) and the generator is in the same state on
-    every rank; the metrics, gradients and new state are the global batch's
-    on every rank, the detections and ground truth this rank's.
+    With a ``mesh`` the batch is this rank's rows of a global batch
+    (``parallel.shard_batch``: with ``grad_accum`` its share of every
+    micro-batch; under a data x spatial mesh see the module docstring) and
+    the generator is in the same state on every rank; the metrics,
+    gradients and new state are the global batch's on every rank, the
+    detections and ground truth those of the rows this rank was given.
     """
     augment = augment or AugmentConfig()
     priors_on = _priors_by_device(priors_center)
     grad_accum = max(1, int(grad_accum))
     patch = tuple(config.input_size)
     random = patch_training or not augment.identity or _needs_dropout(config)
+    spatial = isinstance(mesh, SpatialMesh)
 
-    def loss_fn(leaves: dict, stats: dict, mb: dict, priors: torch.Tensor, generator):
+    def loss_fn(leaves: dict, stats: dict, mb: dict, priors: torch.Tensor, generator, rows):
         locs, scores = functional_call(model, (_cast(model, leaves), stats), (mb["image"],),
                                        {"generator": generator})
         conf_loss, loc_loss = multibox_loss_from_config(
             config, locs, scores, mb["boxes"], mb["labels"], mb["box_mask"],
             priors, batch_mask=mb["batch_mask"], hard_negative_mining=hard_negative_mining,
-            mesh=mesh,
+            mesh=rows,
         )
         return conf_loss + config.alpha * loc_loss, conf_loss, loc_loss, locs, scores
 
@@ -150,16 +165,27 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         device = state.device
         priors = priors_on(device)
         batch = _batch_on(batch, device)
+        b = batch["image"].shape[0]
+        # the view the rows are split over (None: whole on this rank), the
+        # share of the loss this rank's backward takes, the rows it reports
+        rows = None if mesh is None else mesh.rows
+        scale, mine = None, slice(None)
+        if spatial:
+            scale = 1.0 / mesh.n_spatial
+            if not rows_split(b * mesh.n_data, mesh, grad_accum):
+                # every row on every data rank: the data group's blocks, gathered
+                mine = slice(mesh.data.rank * b, (mesh.data.rank + 1) * b)
+                batch = gather_rows(batch, mesh.data)
+                b, rows, scale = b * mesh.n_data, None, scale / mesh.n_data
         images, boxes, box_mask = batch["image"], batch["boxes"], batch["box_mask"]
         if random and generator is None:
             raise ValueError("make_train_step: patch training, augmentation and dropout "
                              "need a generator")
-        b = images.shape[0]
         if b % grad_accum:
             raise ValueError(f"batch size {b} is not divisible by grad_accum={grad_accum}")
         # under a mesh: the global batch's draws, of which this rank keeps its rows
-        draw = ({} if mesh is None else dict(global_batch=b * mesh.size,
-                                             rows=local_row_runs(b * mesh.size, mesh, grad_accum)))
+        draw = {} if rows is None else dict(
+            global_batch=b * rows.size, rows=local_row_runs(b * rows.size, rows, grad_accum))
         if patch_training:
             starts = sample_patch_starts(generator, tuple(images.shape[1:4]), patch, boxes,
                                          box_mask, patch_pos_fraction, **draw)
@@ -168,6 +194,8 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
             images, boxes = augment_batch(generator, images, boxes, augment, **draw)
             boxes = torch.clamp(boxes, 0.0, 1.0)
             box_mask = box_mask & ~(boxes[..., 3:] <= boxes[..., :3]).any(dim=-1)
+        if spatial:  # the whole volumes took the draws: now this rank's slab
+            images = depth_slab(images, mesh)
         full = {"image": images, "boxes": boxes, "labels": batch["labels"],
                 "box_mask": box_mask, "batch_mask": batch["batch_mask"]}
 
@@ -178,11 +206,13 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         stats = {n: s.clone() for n, s in state.batch_stats.items()}
         m = b // grad_accum
         gsum, losses, locs_out, scores_out = None, [], [], []
-        with data_parallel(mesh):
+        with data_parallel(mesh, rows=rows is not None):
             for i in range(grad_accum):
                 mb = {k: v[i * m:(i + 1) * m] for k, v in full.items()}
-                total, conf, loc, locs, scores = loss_fn(leaves, stats, mb, priors, generator)
-                g = torch.autograd.grad(total, [leaves[n] for n in names], allow_unused=True)
+                total, conf, loc, locs, scores = loss_fn(leaves, stats, mb, priors, generator,
+                                                         rows)
+                g = torch.autograd.grad(total if scale is None else total * scale,
+                                        [leaves[n] for n in names], allow_unused=True)
                 g = [torch.zeros_like(leaves[n]) if gi is None else gi for n, gi in zip(names, g)]
                 gsum = g if gsum is None else torch._foreach_add(gsum, g)
                 losses.append(torch.stack([total, conf, loc]).detach())
@@ -190,7 +220,7 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
                 scores_out.append(scores.detach())
         grads = gsum if grad_accum == 1 else torch._foreach_div(gsum, float(grad_accum))
         # this rank's shares of the losses and gradients -> the global batch's
-        losses, n_pos = all_reduce_sum([torch.stack(losses), box_mask.sum().float()], mesh)
+        losses, n_pos = all_reduce_sum([torch.stack(losses), box_mask.sum().float()], rows)
         grads = dict(zip(names, all_reduce_sum(grads, mesh)))
         total, conf_loss, loc_loss = losses[0] if grad_accum == 1 else losses.mean(0)
 
@@ -223,11 +253,11 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         }
         if with_detections:
             with torch.no_grad():
-                metrics["detections"] = _detect(config, torch.cat(locs_out),
-                                                torch.cat(scores_out), priors)
-            metrics["aug_boxes"] = boxes
-            metrics["aug_labels"] = batch["labels"]
-            metrics["aug_box_mask"] = box_mask
+                metrics["detections"] = _detect(config, torch.cat(locs_out)[mine],
+                                                torch.cat(scores_out)[mine], priors)
+            metrics["aug_boxes"] = boxes[mine]
+            metrics["aug_labels"] = batch["labels"][mine]
+            metrics["aug_box_mask"] = box_mask[mine]
         if return_grads:
             metrics["grads"] = grads
         return new_state, metrics
@@ -297,14 +327,24 @@ def make_sharded_gathered_train_step(config: SSD3DConfig, model: SSD3D, priors_c
     shard d's). The gather touches no other rank; the step is
     :func:`make_train_step`'s under ``mesh``. With ``grad_accum > 1`` the JAX
     program's micro-batch i is the global rows [i m, (i + 1) m), which lie
-    in other ranks' shards, so more than one rank with ``grad_accum > 1``
-    raises: stream the batches instead.
+    in other ranks' blocks: after the gather the ranks exchange rows
+    (``parallel.collectives.exchange_rows``) so that each holds its share of
+    every micro-batch (``parallel.local_row_runs``).
     """
-    if mesh.size > 1 and max(1, int(kwargs.get("grad_accum", 1))) > 1:
-        raise ValueError(f"the sharded gathered step over {mesh.size} ranks takes grad_accum=1 "
-                         f"(got {kwargs['grad_accum']}): micro-batches of the global batch span "
-                         "other ranks' shards")
-    return make_gathered_train_step(config, model, priors_center, augment, mesh=mesh, **kwargs)
+    grad_accum = max(1, int(kwargs.get("grad_accum", 1)))
+    body = make_train_step(config, model, priors_center, augment, mesh=mesh, **kwargs)
+
+    def step(state, data, idx, generator=None):
+        batch = _gather_rows(data, idx)
+        if mesh.size > 1 and grad_accum > 1:
+            b = batch["image"].shape[0] * mesh.size
+            batch = exchange_rows(batch, mesh, [local_row_runs(b, mesh, grad_accum, rank=r)
+                                                for r in range(mesh.size)])
+        batch["batch_mask"] = torch.ones(batch["image"].shape[0], dtype=torch.bool,
+                                         device=batch["image"].device)
+        return body(state, batch, generator)
+
+    return step
 
 
 def make_eval_step(config: SSD3DConfig, model: SSD3D, priors_center,
@@ -321,34 +361,42 @@ def make_eval_step(config: SSD3DConfig, model: SSD3D, priors_center,
     then in the patch frame, and ``gt_boxes`` / ``gt_labels`` /
     ``gt_box_mask`` hand back the ground truth re-mapped into it.
 
-    With a data ``mesh`` the batch is this rank's rows of the global batch:
-    the losses and ``n_valid`` are the global batch's on every rank, the
-    detections this rank's.
+    With a ``mesh`` the batch is this rank's rows of the global batch
+    (``parallel.shard_batch``): the losses and ``n_valid`` are the global
+    batch's on every rank, the detections this rank's. Under a data x
+    spatial mesh the forward runs on the rows' depth slabs up to the cut,
+    and the detections come from the whole maps past it.
     """
     priors_on = _priors_by_device(priors_center)
     patch = tuple(config.input_size)
+    spatial = isinstance(mesh, SpatialMesh)
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict) -> dict:
         device = state.device
         priors = priors_on(device)
+        rows = None if mesh is None else mesh.rows
         batch = _batch_on(batch, device)
         images, boxes, box_mask = batch["image"], batch["boxes"], batch["box_mask"]
         if patch_training:
             starts = deterministic_patch_starts(tuple(images.shape[1:4]), patch, boxes,
                                                 box_mask)
             images, boxes, box_mask = _crop(images, boxes, box_mask, starts, patch)
-        locs, scores = eval_forward(model, state, images)
+        if spatial:
+            with data_parallel(mesh):
+                locs, scores = eval_forward(model, state, depth_slab(images, mesh))
+        else:
+            locs, scores = eval_forward(model, state, images)
         conf_loss, loc_loss = multibox_loss_from_config(
             config, locs, scores, boxes, batch["labels"], box_mask,
             priors, batch_mask=batch["batch_mask"], hard_negative_mining=hard_negative_mining,
-            mesh=mesh,
+            mesh=rows,
         )
         total = conf_loss + config.alpha * loc_loss
         n_valid = batch["batch_mask"].sum().float()
-        if mesh is not None:
+        if rows is not None:
             total, conf_loss, loc_loss, n_valid = all_reduce_sum(
-                [torch.stack([total, conf_loss, loc_loss, n_valid])], mesh)[0]
+                [torch.stack([total, conf_loss, loc_loss, n_valid])], rows)[0]
         out = {
             "total_loss": total,
             "conf_loss": conf_loss,

@@ -32,8 +32,11 @@ batch's draws); the ConvNet without dropout (JAX) and with dropout 0.5 and
 ``grad_accum=2`` (the global mask, each rank its rows). The sharded gathered
 step (two shards of 8 volumes, 4 local indices a rank) against JAX's
 ``make_sharded_gathered_train_step`` on a 2-device mesh with the same local
-indices and against the port's 1-rank step on the gathered global batch;
-it refuses ``grad_accum > 1`` over several ranks. ``BatchNorm3d``'s own
+indices and against the port's 1-rank step on the gathered global batch,
+and at ``grad_accum=2`` (the ranks exchange rows after the gather: each
+takes its share of every micro-batch) against JAX's 2-device program and the
+port's 1-rank step at ``grad_accum=2``; the row exchange itself through
+``all_to_all`` and through the gathered batch. ``BatchNorm3d``'s own
 train branch under the mesh against one rank.
 The multi-host helpers: ``shard_global_batch`` rows give the 1-rank loss,
 ``process_batch_slice`` and ``dcn_friendly_mesh`` equal JAX's.
@@ -41,7 +44,8 @@ The multi-host helpers: ``shard_global_batch`` rows give the 1-rank loss,
 ``Trainer.fit(data_parallel=True)`` at W = 2 (16^3, width 0.25, flips drawn
 at random, 2 epochs of 2 steps): with the sharded cache its per-step losses
 equal the port's 1-rank gathered step on the global batches of the JAX
-package's sharded index stream, and streaming equals the 1-rank streaming
+package's sharded index stream (also at ``grad_accum=2``, the cache kept),
+and streaming equals the 1-rank streaming
 fit, within 1e-5 relative; both ranks end with bit-equal states; only rank
 0 writes (one ``metrics.jsonl`` line per logged event, rank 1 reports no
 checkpoint). ``cli.train --data_parallel 1`` trains at W = 2. A global
@@ -93,7 +97,6 @@ from mslesions3d_tpu_torch.train import (
     TrainerConfig,
     create_train_state,
     make_gathered_train_step,
-    make_sharded_gathered_train_step,
     make_train_step,
 )
 from mslesions3d_tpu_torch.weights import from_jax_batch_stats, from_jax_params, from_jax_variables
@@ -121,26 +124,27 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_group(task: str, root: Path, env_init: bool = False) -> list:
-    """Starts the two ranks of ``task``; ``finish_group`` waits for them."""
+def launch_group(task: str, root: Path, env_init: bool = False, world: int = 2) -> list:
+    """Starts the ``world`` ranks of ``task``; ``finish_group`` waits for them."""
     port, procs = _free_port(), []
-    for rank in range(2):
+    for rank in range(world):
         env = dict(os.environ)
         if env_init:
-            env.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
-                       LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
         procs.append(subprocess.Popen(
-            [sys.executable, str(WORKER), task, str(rank), "2", str(port), str(root)],
+            [sys.executable, str(WORKER), task, str(rank), str(world), str(port), str(root)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
     return procs
 
 
-def finish_group(task: str, root: Path, procs: list) -> list:
-    """Both ranks' results; a rank that fails or outlives the timeout fails the test."""
+def finish_group(task: str, root: Path, procs: list, timeout_s: float = GROUP_TIMEOUT_S) -> list:
+    """Every rank's results; a rank that fails or outlives the timeout fails the test."""
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=GROUP_TIMEOUT_S)[0])
+            outs.append(p.communicate(timeout=timeout_s)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -148,7 +152,8 @@ def finish_group(task: str, root: Path, procs: list) -> list:
                 p.wait()
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"{task} rank {rank} failed:\n{out}"
-    return [torch.load(root / f"{task}_{rank}.pt", weights_only=False) for rank in range(2)]
+    return [torch.load(root / f"{task}_{rank}.pt", weights_only=False)
+            for rank in range(len(procs))]
 
 
 # ------------------------------------------------------------------ steps
@@ -334,13 +339,51 @@ def test_sharded_gathered_step_equals_jax(steps):
         assert_params_close(ours["params"], jparams)
 
 
-def test_sharded_gathered_step_refuses_grad_accum():
-    class Mesh:
-        size, rank = 2, 0
-
+def test_sharded_gathered_step_grad_accum_equals_jax_and_one_rank(steps):
+    """grad_accum=2 over 2 ranks: block r of the global batch is gathered
+    from shard r, and micro-batch i (global rows [4 i, 4 i + 4)) lies in
+    block i, so the ranks exchange rows; the step then equals the port's
+    1-rank step on the gathered global batch and JAX's 2-device program."""
+    g = steps["gathered"]
+    rows = (np.arange(2)[:, None] * g["n_local"] + g["local_idx"]).ravel()
     cfg = SSD3DConfig.create(**KW)
-    with pytest.raises(ValueError, match="takes grad_accum=1 \\(got 2\\)"):
-        make_sharded_gathered_train_step(cfg, SSD3D(cfg), model_priors(cfg), Mesh, grad_accum=2)
+    state = create_train_state(cfg, device="cpu", state_dict=g["source"])
+    data = {k: torch.from_numpy(v) for k, v in g["data"].items()}
+    new, m = make_gathered_train_step(cfg, SSD3D(cfg), model_priors(cfg), grad_accum=2,
+                                      return_grads=True)(state, data, torch.from_numpy(rows))
+    jcfg = JaxConfig.create(**KW)
+    mesh = jax_make_mesh(2)
+    sharding = NamedSharding(mesh, P("data"))
+    jstep = jax_steps.make_sharded_gathered_train_step(
+        jcfg, JaxSSD3D(jcfg), model_priors(cfg), mesh, donate=False, grad_accum=2)
+    jnew, jm = quarantine_from_persistent_cache(jstep)(
+        _jax_state(jcfg, g["source"]),
+        {k: jax.device_put(v, sharding) for k, v in g["data"].items()},
+        jax.device_put(g["local_idx"].ravel().astype(np.int32), sharding),
+        jax.random.PRNGKey(0))
+    jparams = from_jax_params(jax.device_get(jnew.params), cfg)
+    for results in steps["ranks"]:
+        ours = results["sharded_gathered_ga2"]
+        _assert_step_close(ours, new, m)
+        for key in ("total_loss", "conf_loss", "loc_loss", "grad_norm", "n_positives"):
+            _close_rel(ours[key], jm[key], RTOL)
+        assert_params_close(ours["params"], jparams)
+        for name, ref in m["grads"].items():
+            np.testing.assert_allclose(_np(ours["grads"][name]), _np(ref), rtol=1e-3, atol=1e-4,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("via", [True, False], ids=["all_to_all", "all_gather"])
+def test_exchange_rows_hands_each_rank_its_runs(steps, via):
+    """12 rows in blocks of 6, 3 micro-batches of 4: rank r gets rows
+    [4 i + 2 r, 4 i + 2 r + 2) of each, booleans kept."""
+    for rank, results in enumerate(steps["ranks"]):
+        got = results["exchange"][via]
+        expected = np.concatenate([np.arange(4 * i + 2 * rank, 4 * i + 2 * rank + 2)
+                                   for i in range(3)])
+        np.testing.assert_array_equal(got["row"].numpy(), expected)
+        assert got["flag"].dtype == torch.bool
+        np.testing.assert_array_equal(got["flag"].numpy(), expected % 3 == 0)
 
 
 def test_multihost_rows_give_the_single_process_loss(steps):
@@ -406,7 +449,8 @@ def trained(tmp_path_factory):
                 "--max_objects", "4", "-a", "flip"]
     torch.save({"data": str(data), "kw": TRAINER_KW, "trainer": TRAINER,
                 "augment": TRAINER_AUG, "cli": cli_args,
-                "fits": {"cache": {}, "stream": dict(device_data_cache=False)}},
+                "fits": {"cache": {}, "stream": dict(device_data_cache=False),
+                         "cache_ga2": dict(grad_accum=2)}},
                root / "inputs.pt")
     procs = launch_group("trainer", root, env_init=True)
     dm = SyntheticDataModule(data, n_classes=1, batch_size=8, max_objects=4)
@@ -423,9 +467,9 @@ def _losses(result) -> list:
     return [v for e in result["timings"]["epochs"] for v in e["train_losses"]]
 
 
-def test_trainer_sharded_cache_follows_the_jax_index_stream(trained):
-    """The sharded cache's step stream equals the 1-rank gathered step on the
-    global batches of the JAX package's stream (train/loop.py:406-420)."""
+def _index_stream_losses(trained, grad_accum: int) -> list:
+    """The 1-rank gathered step's losses on the global batches of the JAX
+    package's sharded index stream (train/loop.py:406-420)."""
     dm = trained["dm"]
     cfg = SSD3DConfig.create(**TRAINER_KW)
     n_train, world, b_local = len(dm.trainsubs), 2, 4
@@ -433,7 +477,7 @@ def test_trainer_sharded_cache_follows_the_jax_index_stream(trained):
     host = dm.materialize([dm.trainsubs[i % n_train] for i in range(world * n_local)])
     data = {k: torch.from_numpy(v) for k, v in host.items() if isinstance(v, np.ndarray)}
     step = make_gathered_train_step(cfg, SSD3D(cfg), model_priors(cfg),
-                                    AugmentConfig(**TRAINER_AUG))
+                                    AugmentConfig(**TRAINER_AUG), grad_accum=grad_accum)
     state = create_train_state(cfg, seed=TRAINER["seed"], device="cpu")
     expected = []
     for epoch in range(TRAINER["max_epochs"]):
@@ -445,9 +489,26 @@ def test_trainer_sharded_cache_follows_the_jax_index_stream(trained):
                                   for r, p in enumerate(perms)])
             state, m = step(state, data, torch.from_numpy(idx), gen)
             expected.append(float(m["total_loss"]))
+    assert len(expected) == 4
+    return expected
+
+
+def test_trainer_sharded_cache_follows_the_jax_index_stream(trained):
+    """The sharded cache's step stream equals the 1-rank gathered step on the
+    global batches of the JAX package's stream (train/loop.py:406-420)."""
+    expected = _index_stream_losses(trained, 1)
     for results in trained["ranks"]:
         np.testing.assert_allclose(_losses(results["cache"]["result"]), expected, rtol=RTOL)
-    assert len(expected) == 4
+
+
+def test_trainer_sharded_cache_keeps_its_shards_with_grad_accum(trained):
+    """``grad_accum=2`` over 2 ranks keeps the sharded cache: the fit's losses
+    follow the JAX package's sharded index stream at grad_accum=2 (streaming
+    would draw other batches)."""
+    expected = _index_stream_losses(trained, 2)
+    for results in trained["ranks"]:
+        np.testing.assert_allclose(_losses(results["cache_ga2"]["result"]), expected,
+                                   rtol=RTOL)
 
 
 @pytest.mark.parametrize("fit", ["cache", "stream"])
@@ -497,8 +558,3 @@ def test_trainer_refuses_a_batch_that_does_not_divide(trained):
         assert results["ragged"] == "global batch 3 is not divisible by the mesh's 2 ranks"
     assert not (trained["root"] / "logs" / "ragged" / "metrics.jsonl").exists()
 
-
-def test_spatial_shards_still_raise(tmp_path):
-    tcfg = TrainerConfig(logdir=str(tmp_path), device="cpu", spatial_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17c"):
-        Trainer(tcfg).fit(SSD3DConfig.create(**KW), None)

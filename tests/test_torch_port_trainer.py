@@ -336,12 +336,13 @@ def test_streaming_path_trains(dataset_root, tmp_path):
     assert "mAP/validation_IoU_0.1" in result["history"][1]
 
 
-# data_parallel is ported (tests/test_torch_port_parallel.py); spatial
-# sharding is not
+# data_parallel and spatial sharding are ported (tests/test_torch_port_parallel.py,
+# tests/test_torch_port_spatial.py); spatial sharding in a world that cannot
+# hold the mesh raises rather than training unsharded
 @pytest.mark.parametrize("option", [pytest.param(dict(spatial_shards=2), id="option1")])
 def test_options_not_ported_raise(option, tmp_path):
     tcfg = TrainerConfig(logdir=str(tmp_path), device="cpu", **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17c"):
+    with pytest.raises(ValueError, match="spatial_shards=2 does not divide the 1 ranks"):
         Trainer(tcfg).fit(SSD3DConfig.create(**KW), None)
 
 
