@@ -187,6 +187,28 @@ Phases (any failure exits non-zero and prints no result line):
    phase 4c's recipe cut to 4 steps, streaming, beside the 1-rank streaming
    run: its validation loss within the JAX trainer test's tolerance. The
    phase's checks are all made, and any failure fails it.
+4i. tensor parallelism on the one card: gloo ranks spawned on it form data x
+   spatial x model meshes (``parallel.make_mesh_3d``), MobileNet at full
+   width in bf16, each run with the launch counts set to 0 in the ranks just
+   before it and read just after. (a) Two ranks on a 1 x 1 x 2 mesh: the
+   forward (``make_tensor_parallel_forward``) and the eval step at batch 8
+   of the 96^3 headline with its BN calibrated, default path and both flags,
+   against the unsharded model on the same card: locs, scores and
+   detections within the stated bounds; K2 once a forward a rank on its 64
+   channels of layer 3 (0 mismatches against its plain version; its
+   channels against the unsharded K2's), K3 once a forward a rank on the
+   gathered 128 channels (within its bound), K1 once an eval step (equal to
+   the plain NMS); each rank's parameter bytes, peak memory and ms a
+   forward beside the unsharded model's. (b) Four ranks on a 1 x 2 x 2
+   mesh: the 64^3 bf16 train step at global batch 2 with flips against the
+   unsharded step (losses, gradient norm, the gradient vector, each leaf's
+   norm and the BN statistics within the stated bounds; each rank's peak
+   memory and ms a step). (c) ``materialize`` of phase 4c's 40 volumes with
+   the native NIfTI loader and with its plain version (the Python decode
+   and normalisation), in turns, the arrays held against each other. The
+   phase's checks are all made, and any failure fails it. It runs after
+   phase 5's times: the rank processes it starts on the card would make
+   the profiler of this process drop kernel records from later traces.
 5. times on the card: K1 (at K = 1000, and at K = 3942 for N = 8 and 32;
    on the full-volume path: a chunk's per-patch NMS at N = 32, K = 500 and
    the stitch at V = 1 and 4, K = 1000, and at top_k 395, K = 3950),
@@ -229,9 +251,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd import DeviceType
 from torch.func import functional_call
-from torch.profiler import ProfilerActivity, profile
 
 from mslesions3d_tpu_torch.cli import import_torch as import_cli
 from mslesions3d_tpu_torch.cli import model_insight as insight_cli
@@ -241,9 +261,11 @@ from mslesions3d_tpu_torch.cli.serve import make_http_server
 from mslesions3d_tpu_torch.cli import train as train_cli
 from mslesions3d_tpu_torch.cli import tune_lr as tune_lr_cli
 from mslesions3d_tpu_torch.data.augment import AugmentConfig
+from mslesions3d_tpu_torch.data.boxes_from_seg import boxes_from_segmentation
 from mslesions3d_tpu_torch.data.datasets import SyntheticDataModule
 from mslesions3d_tpu_torch.data.generate import generate_dataset
 from mslesions3d_tpu_torch.data.nifti import load_nifti
+from mslesions3d_tpu_torch.data.transforms import t_normalize_intensity
 from mslesions3d_tpu_torch.kernels.build import build, find_nvcc
 from mslesions3d_tpu_torch.kernels.depthwise import (
     depthwise_bn_relu,
@@ -261,6 +283,7 @@ from mslesions3d_tpu_torch.kernels.qconv import (
 )
 from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, plan_tail, tail_reference
 from mslesions3d_tpu_torch.models.losses import multibox_loss_from_config
+from mslesions3d_tpu_torch.native import load_nifti_fast
 from mslesions3d_tpu_torch.models.ssd3d import SSD3D, SSD3DConfig, model_priors
 from mslesions3d_tpu_torch import sliding_window
 from mslesions3d_tpu_torch.models import layers as model_layers
@@ -269,8 +292,13 @@ from mslesions3d_tpu_torch.parallel import (
     initialize_multihost,
     make_mesh,
     make_mesh_2d,
+    make_mesh_3d,
     make_spatially_sharded_forward,
+    make_tensor_parallel_forward,
     shard_batch,
+    shard_tree,
+    tensor_sharding,
+    unshard_tree,
 )
 from mslesions3d_tpu_torch.ops import nms as nms_ops
 from mslesions3d_tpu_torch.ops.metrics import calculate_mAP
@@ -303,6 +331,7 @@ from mslesions3d_tpu_torch.train import (
 )
 from mslesions3d_tpu_torch.train.state import BIAS_MULT, is_bias
 from mslesions3d_tpu_torch.train.steps import _cast
+from mslesions3d_tpu_torch.utils import profiling
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): float32 outside the
 # tensor cores, bf16 on the tensor cores, and device memory bandwidth.
@@ -401,48 +430,19 @@ def clocks() -> str:
     ).stdout.strip()
 
 
-def kernel_name(key: str) -> str:
-    """A profiler row's kernel function, without namespace and arguments."""
-    return key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
-
-
 def device_ms(fn, iters: int) -> tuple[float, dict]:
-    """Mean device ms per call of the kernels fn launches, in total and by
-    kernel function: their durations in a torch.profiler trace, host gaps
-    excluded. The profiler can lose kernel records (seen on the card: 298 of
-    300), which would shrink a plain sum; so each kernel function counts as
-    its mean duration over the records kept times its launches per call
-    (its records over ``iters``, rounded), and the records lost are logged.
-    A trace with no kernel at all is taken once more."""
-    for _ in range(2):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if rows:
-            break
-        log("the profiler saw no kernel on the card; tracing once more")
-    check(rows, "the profiler saw no kernel on the card, twice")
-    split, lost = {}, 0
-    for e in rows:
-        name = kernel_name(e.key)
-        per_call = max(1, round(e.count / iters))
-        lost += per_call * iters - e.count
-        split[name] = split.get(name, 0.0) + e.self_device_time_total / e.count * per_call / 1e3
-    if lost:
-        log(f"the profiler lost {lost} kernel records of {iters} calls; each kernel function "
-            "is timed by the mean of the records it kept")
-    return sum(split.values()), split
+    """``utils.profiling.device_ms``, reporting through :func:`log`."""
+    return profiling.device_ms(fn, iters, log=log)
 
 
 def device_ms_rounds(fn, iters: int, rounds: int = 3) -> tuple[list, dict]:
-    """device_ms in ``rounds`` traces: (the rounds' ms per call, sorted; the
-    median round's ms per call by kernel function)."""
-    results = sorted((device_ms(fn, iters) for _ in range(rounds)), key=lambda r: r[0])
-    return [total for total, _ in results], results[rounds // 2][1]
+    """``utils.profiling.device_ms_rounds``, reporting through :func:`log`."""
+    return profiling.device_ms_rounds(fn, iters, rounds, log=log)
+
+
+def profile_calls(label, what, fn, card, calls=3, top=12) -> dict:
+    """``utils.profiling.profile_calls``, reporting through :func:`log`."""
+    return profiling.profile_calls(label, what, fn, card, calls, top, log=log)
 
 
 def hmma_counts(library) -> dict:
@@ -758,57 +758,6 @@ def layer_inputs(model, x):
 
 
 # ---------------------------------------------------------------- profiling
-def device_busy_ms(prof) -> tuple[float, float]:
-    """(busy, span) in ms of the profiled kernels: busy is the union of
-    their intervals, so kernels that overlap count once."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    check(spans, "the profiler saw no kernel on the card")
-    busy, cur_start, cur_end = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    return busy / 1e3, (max(end for _, end in spans) - spans[0][0]) / 1e3
-
-
-def profile_calls(label, what, fn, card, calls=3, top=12) -> dict:
-    """torch.profiler breakdown of ``calls`` calls of fn() (``what``) after a warm one:
-    the device's busy time and idle share, launches per call and the ``top``
-    kernels by device time (all of them, ms a call, in ``by_kernel``)."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms, span_ms = device_busy_ms(prof)
-    launches = sum(e.count for e in rows) // calls
-    cudnn_dw = sum(e.count for e in rows if "convolveNd" in e.key) // calls
-    conv = sum(e.count for e in rows if "conv" in e.key.lower()) // calls
-    idle = 1 - busy_ms / span_ms
-    log(f"profile [{label}] of {calls} {what}: device busy {busy_ms:.3f} ms (union of kernel "
-        f"intervals) of a {span_ms:.3f} ms span from the first kernel's start to the last one's "
-        f"end, idle share {idle:.3f}; host window {window_ms:.3f} ms; {launches} kernel launches "
-        f"per call, {cudnn_dw} of them cuDNN's convolveNd kernels (grouped convs: forward, "
-        f"dgrad, wgrad), {conv} with 'conv' in the name [{card}]")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"  {e.self_device_time_total / 1e3 / calls:9.3f} ms/call  {e.count // calls:4d} "
-            f"launches/call  {e.key[:90]}")
-    by_kernel = {}
-    for e in rows:
-        by_kernel[kernel_name(e.key)] = (by_kernel.get(kernel_name(e.key), 0.0)
-                                         + e.self_device_time_total / 1e3 / calls)
-    return {"busy_ms": busy_ms / calls, "idle_share": idle, "launches": launches,
-            "window_ms": window_ms / calls, "by_kernel": by_kernel}
-
-
 def profile_detect(name, detector, x, card, calls=3):
     with torch.inference_mode():
         profile_calls(name, f"Detector.detect calls at batch {x.shape[0]}",
@@ -2223,26 +2172,29 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def two_ranks_on_one_card(tmp: Path, rank_fn=None, timeout_s: float = DP_TIMEOUT_S) -> list:
-    """Spawns the two ranks of ``rank_fn`` (default ``dp_rank``), each
+def ranks_on_one_card(tmp: Path, rank_fn=None, timeout_s: float = DP_TIMEOUT_S,
+                      nprocs: int = 2) -> list:
+    """Spawns the ``nprocs`` ranks of ``rank_fn`` (default ``dp_rank``), each
     saving ``<name>{rank}.pt`` in ``tmp``, and waits for them, each join
     bounded; returns their saved results."""
     rank_fn = rank_fn or dp_rank
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    ctx = torch.multiprocessing.start_processes(rank_fn, args=(port, str(tmp)), nprocs=2,
+    ctx = torch.multiprocessing.start_processes(rank_fn, args=(port, str(tmp)), nprocs=nprocs,
                                                join=False, start_method="spawn")
     deadline = time.perf_counter() + timeout_s
     try:
         while not ctx.join(timeout=5):
-            check(time.perf_counter() < deadline, "the two gloo ranks outlived their timeout")
+            check(time.perf_counter() < deadline,
+                  f"the {nprocs} gloo ranks outlived their timeout")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
                 p.join()
-    return [torch.load(tmp / f"{rank_fn.__name__}{r}.pt", weights_only=False) for r in range(2)]
+    return [torch.load(tmp / f"{rank_fn.__name__}{r}.pt", weights_only=False)
+            for r in range(nprocs)]
 
 
 def match_detections(det: dict, ref: dict) -> torch.Tensor:
@@ -2268,7 +2220,7 @@ def drive_two_ranks(card, tmp: Path, expect) -> dict:
     the gradients, the BN statistics, the params after the step, each
     rank's forward and the detections of the ``with_detections`` step."""
     t0 = time.perf_counter()
-    ranks = two_ranks_on_one_card(tmp)
+    ranks = ranks_on_one_card(tmp)
     spawn_s = time.perf_counter() - t0
     on = ranks[0]["on"]
     expect(all(r["on"] == on for r in ranks), "the ranks ran on different devices")
@@ -2850,7 +2802,7 @@ def drive_spatial(card, counters, tmp: Path, entry: dict, cal_state) -> dict:
                 "recipe_args": recipe_args}, tmp / "sp_inputs.pt")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = two_ranks_on_one_card(tmp, sp_rank, SP_TIMEOUT_S)
+    ranks = ranks_on_one_card(tmp, sp_rank, SP_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
 
     # (a) the train step at config #3's volume
@@ -3001,6 +2953,428 @@ def drive_spatial(card, counters, tmp: Path, entry: dict, cal_state) -> dict:
            "cli.train --spatial_shards 2 launched no K1 on a rank")
     log(f"spatial phase {time.perf_counter() - t_phase:.1f} s")
     check(not failed, "phase 4h: " + "; ".join(failed))
+    return out
+
+
+# ---------------------------------------------------------------- tensor parallelism
+# phase 4i: gloo ranks sharing the card on a data x spatial x model mesh
+# (parallel.make_mesh_3d), MobileNet at full width in bf16. (a) Two ranks on
+# a 1 x 1 x 2 mesh: the headline forward (make_tensor_parallel_forward) and
+# eval step at batch TP_BATCH with its BN calibrated, default path and both
+# flags, against the unsharded model on the same card: locs and scores
+# within DP_RTOL (relative Frobenius: a conv of half the output channels may
+# take another cuDNN algorithm, a bf16 rounding), detection counts equal and
+# each within DP_DET_ATOL of the unsharded detector's; K2 once a forward a
+# rank on its 64 channels of layer 3 (0 mismatches against its plain
+# version; its channels against the unsharded K2's), K3 once a forward a
+# rank on the gathered 128 channels (within its bound; its maps against the
+# unsharded K3's), K1 once an eval step (equal to the plain NMS); each
+# rank's parameter bytes and the memory a forward adds at its peak. (b) Four
+# ranks on a 1 x 2 x 2 mesh: the train step at 64^3, global batch
+# TP_TRAIN_BATCH, flips, against the unsharded step. In bf16: the losses,
+# gradient norm, the gradient vector (joined over the model group) and the
+# BN statistics (all leaves as one vector) within DP_RTOL relative, every
+# leaf holding at least SP_LEAF_FLOOR of the vector's norm within
+# SP_LEAF_NORM of its norm; each rank's peak and ms a step. A pointwise conv
+# of half the output channels may take another cuDNN algorithm than the
+# whole one's, so bf16 activations round apart, and a deep BN's mean over 16
+# values a channel moves by up to 2% of its largest (a card run: 1.7e-2 at
+# layer 7, 1.1e-4 over all leaves). The same step in float32 (TF32 off)
+# shows the arithmetic is the unsharded step's: the losses, gradient norm
+# and gradient vector within TP_F32_RTOL, every BN statistic leaf within
+# TP_F32_RTOL of its largest, counted leaves within TP_F32_LEAF. (c) The
+# native NIfTI loader against its plain version (the Python decode and
+# normalisation) on phase 4c's 40 volumes: the loads alone and materialize,
+# each in turns, and the arrays against each other.
+TP_BATCH = 8
+TP_TRAIN_BATCH = 2
+TP_AUGMENT = dict(flip_axes=(0, 1, 2))
+TP_TIMEOUT_S = 600
+TP_F32_RTOL = 1e-5
+TP_F32_LEAF = 1e-4
+
+
+def tp_eval(mesh, name: str, cal_state, counters) -> dict:
+    """Phase 4i (a): the forward (``make_tensor_parallel_forward`` on the
+    mesh, or the unsharded model) and the eval step at batch TP_BATCH of the
+    96^3 headline with the BN-calibrated weights, on the default path or
+    with both flags: the launches of each, K2's and K3's operands and
+    outputs, the eval step's locs and scores, the parameter bytes, the
+    memory the forward added at its peak and its ms a call."""
+    config = SSD3DConfig.create(**HEADLINE, **FLAG_SETTINGS[name])
+    model, priors = SSD3D(config), model_priors(config)
+    state = create_train_state(config, device="cuda", state_dict=cal_state)
+    batch = train_batch(TP_BATCH, torch.Generator(device="cuda").manual_seed(6),
+                        size=HEADLINE["input_size"])
+    if mesh is None:
+        model.load_state_dict(cal_state)
+        model.cuda().eval()
+        served = dict(model.named_parameters())
+
+        def forward(x):
+            return model(x)
+    else:
+        state = shard_tree(state, mesh)
+        run = make_tensor_parallel_forward(model, mesh)
+        served = {k: v for k, v in run.place_variables(cal_state).items()
+                  if k in dict(model.named_parameters())}
+
+        def forward(x):
+            return run(cal_state, x)
+    step = make_eval_step(config, model, priors, mesh=mesh)
+    out = {"param_bytes": sum(p.numel() * p.element_size() for p in served.values())}
+    with recorded_k2_k3() as calls, tapped(model) as outs, torch.no_grad():
+        forward(batch["image"])  # warm: the kernels' plans and cuDNN's algorithms
+        calls["k2"].clear()
+        calls["k3"].clear()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        locs, scores = forward(batch["image"])
+        torch.cuda.synchronize()
+        out["forward_launches"] = [c.launches for c in counters]
+        out["peak_added"] = torch.cuda.max_memory_allocated() - before
+        for c in counters:
+            c.launches = 0
+        ev = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_launches"] = [c.launches for c in counters]
+        k2_k3 = {k: list(v) for k, v in calls.items()}
+        out["forward_ms"] = cuda_ms(partial(forward, batch["image"]), iters=3, warmup=1)
+    out.update(locs=locs.float().cpu(), scores=scores.float().cpu(),
+               detections={k: v.cpu() for k, v in ev["detections"].items()},
+               step_locs_scores=[t.cpu() for t in outs[-1]], calls=k2_k3)
+    return out
+
+
+def tp_train_step(mesh, counters, dtype: str = "bfloat16") -> dict:
+    """Phase 4i (b): one train step at 64^3 (global batch TP_TRAIN_BATCH,
+    flips, in ``dtype``) on this rank's slices of the state and rows of the
+    batch, or unsharded: its metrics, the whole gradients and BN statistics,
+    the memory it added at its peak, its launches; in bf16 ms a step."""
+    config = SSD3DConfig.create(**dict(TRAIN, dtype=dtype))
+    model, priors = SSD3D(config), model_priors(config)
+    state = create_train_state(config, seed=0, device="cuda")
+    batch = train_batch(TP_TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(1))
+    specs = None
+    if mesh is not None:
+        specs = tensor_sharding(state, mesh)
+        state, batch = shard_tree(state, mesh), shard_batch(batch, mesh)
+    step = make_train_step(config, model, priors, augment=AugmentConfig(**TP_AUGMENT),
+                           mesh=mesh, return_grads=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    new, m = step(state, batch, torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    out = {"peak_added": torch.cuda.max_memory_allocated() - before,
+           "launches": [c.launches for c in counters],
+           "metrics": {k: float(m[k]) for k in ("total_loss", "conf_loss", "loc_loss",
+                                                "grad_norm", "n_positives")}}
+    grads, stats = m["grads"], new.batch_stats
+    if mesh is not None:
+        grads = unshard_tree(grads, mesh, specs.params)
+        stats = unshard_tree(stats, mesh, specs.batch_stats)
+    out["grads"] = {k: v.float().cpu() for k, v in grads.items()}
+    out["batch_stats"] = {k: v.cpu() for k, v in stats.items()}
+    if dtype == "bfloat16":
+        out["step_ms"], _ = step_rounds(step, new, batch,
+                                        torch.Generator(device="cuda").manual_seed(3),
+                                        iters=3, rounds=2)
+    return out
+
+
+def _tp_join(rank: int, world: int, port: int):
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda:0",
+                         timeout_s=TP_TIMEOUT_S)
+
+
+def tp_forward_rank(rank: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of two gloo ranks sharing the card on a 1 x 1 x 2 data
+    x spatial x model mesh (phase 4i (a)): the forward and eval step on
+    each path; its K2 and K3 held against their plain versions on the
+    operands it gave them; saves what it computed."""
+    tmp = Path(tmp)
+    _tp_join(rank, 2, port)
+    mesh = make_mesh_3d(1, 1, 2, device="cuda:0")
+    cal_state = {k: v.cuda() for k, v in torch.load(tmp / "tp_inputs.pt")["cal_state"].items()}
+    counters = (greedy_nms_cuda, fused_depthwise_bn_relu_cuda, fused_tail_cuda)
+    out = {"mesh": mesh.describe(), "eval": {}}
+    for name in ("off", "both"):
+        ev = tp_eval(mesh, name, cal_state, counters)
+        config = SSD3DConfig.create(**HEADLINE, **FLAG_SETTINGS[name])
+        priors = torch.from_numpy(model_priors(config)).cuda()
+        check_plain_detections(f"tensor-parallel rank {rank}, eval step [{name}]",
+                               {k: v.cuda() for k, v in ev["detections"].items()},
+                               *(t.cuda() for t in ev["step_locs_scores"]), priors, config)
+        calls = ev.pop("calls")
+        if name == "both":  # K2 and K3 on this rank's operands, against their plain versions
+            x, w, gamma, beta, k2_out = calls["k2"][0]
+            ev["dw_check"] = compare_dw(f"tensor-parallel rank {rank}, layer 3's channel slice",
+                                        x, w, gamma, beta)
+            ev["k2_input"], ev["k2_out"] = tuple(x.shape), k2_out.cpu()
+            tail_x, tail_layers, emit, maps = calls["k3"][0]
+            ev["tail_check"] = compare_tail_exact(
+                f"tensor-parallel rank {rank}, the tail on the gathered channels", tail_x,
+                tail_layers, emit)
+            ev["k3_input"], ev["k3_maps"] = tuple(tail_x.shape), [m.cpu() for m in maps]
+        out["eval"][name] = ev
+    torch.save(out, tmp / f"tp_forward_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def tp_train_rank(rank: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of four gloo ranks sharing the card on a 1 x 2 x 2
+    mesh (phase 4i (b)): the train step; saves what it computed."""
+    _tp_join(rank, 4, port)
+    mesh = make_mesh_3d(1, 2, 2, device="cuda:0")
+    counters = (greedy_nms_cuda, fused_depthwise_bn_relu_cuda, fused_tail_cuda)
+    out = {"mesh": mesh.describe(), "train": tp_train_step(mesh, counters),
+           "train_f32": tp_train_step(mesh, counters, "float32")}
+    torch.save(out, Path(tmp) / f"tp_train_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def native_sample(dm, subject):
+    """The native loads of a subject's image (normalised) and segmentation."""
+    return (load_nifti_fast(dm.data_dir / "images" / f"sub-{subject}_image.nii.gz",
+                            normalize=True),
+            load_nifti_fast(dm.data_dir / "labels" / f"sub-{subject}_seg.nii.gz"))
+
+
+class PythonLoaderModule(SyntheticDataModule):
+    """``SyntheticDataModule`` on the native loader's plain version: the
+    Python NIfTI decode and ``t_normalize_intensity``, then the host boxes."""
+
+    def _load_sample(self, subject, boxes: bool = True):
+        img = load_nifti(self.data_dir / "images" / f"sub-{subject}_image.nii.gz")
+        seg = load_nifti(self.data_dir / "labels" / f"sub-{subject}_seg.nii.gz")
+        sample = t_normalize_intensity({"img": img.data.astype(np.float32), "seg": seg.data,
+                                        "affine": img.affine, "subject": subject}, nonzero=True)
+        if boxes:
+            sample["boxes"], sample["labels"] = boxes_from_segmentation(
+                sample["seg"], "classes", n_classes=self.n_classes)
+        return sample
+
+
+def drive_tensor(card, counters, tmp: Path, cal_state) -> dict:
+    """Phase 4i: tensor parallelism on the one card, gloo ranks on a 1 x 1 x 2
+    and a 1 x 2 x 2 mesh against the unsharded forward, eval step and train
+    step on the same card; the native loader against its plain version on
+    phase 4c's dataset, generated again into ``tmp``."""
+    t_phase = time.perf_counter()
+    out = {"k1": {}, "k2": {}, "k3": {}, "timing": {}}
+    failed = []
+
+    def expect(cond, message: str) -> None:
+        if not cond:
+            log(f"CHECK FAILED: {message}")
+            failed.append(message)
+
+    # the unsharded references on this card, before the ranks start
+    ref_eval = {name: tp_eval(None, name, cal_state, counters) for name in ("off", "both")}
+    ref_train = tp_train_step(None, counters)
+    ref_train_f32 = tp_train_step(None, counters, "float32")
+    torch.save({"cal_state": {k: v.cpu() for k, v in cal_state.items()}}, tmp / "tp_inputs.pt")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fwd_ranks = ranks_on_one_card(tmp, tp_forward_rank, TP_TIMEOUT_S, nprocs=2)
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_ranks = ranks_on_one_card(tmp, tp_train_rank, TP_TIMEOUT_S, nprocs=4)
+    train_s = time.perf_counter() - t0
+
+    # (a) the forward and the eval step at batch TP_BATCH of the headline
+    for name in ("off", "both"):
+        ref = ref_eval[name]
+        evs = [r["eval"][name] for r in fwd_ranks]
+        fwd_rel = max(float((e[t] - ref[t]).norm() / ref[t].norm())
+                      for e in evs for t in ("locs", "scores"))
+        det1 = ref["detections"]
+        dist = torch.cat([torch.cat([match_detections(e["detections"], det1),
+                                     match_detections(det1, e["detections"])]) for e in evs])
+        counts_equal = all(torch.equal(e["detections"]["count"], det1["count"]) for e in evs)
+        worst = float(dist.max()) if dist.numel() else 0.0
+        log(f"tensor parallel [{name}], two gloo ranks sharing the card ({fwd_ranks[0]['mesh']}; "
+            f"spawned and joined in {fwd_s:.1f} s): the headline forward at batch {TP_BATCH}, "
+            f"{HEADLINE['input_size']}: locs and scores against the unsharded forward "
+            f"{fwd_rel:.2e} (relative, bound {DP_RTOL}); eval step detections "
+            f"{[int(e['detections']['count'].sum()) for e in evs]} (unsharded "
+            f"{int(det1['count'].sum())}), counts equal {counts_equal}, largest distance to the "
+            f"nearest of the same label {worst:.3e} (bound {DP_DET_ATOL}); launches K1-K3 per "
+            f"rank, forward {[e['forward_launches'] for e in evs]}, eval step "
+            f"{[e['step_launches'] for e in evs]} [{card}]")
+        ratios = [round(e["param_bytes"] / ref["param_bytes"], 4) for e in evs]
+        log(f"  parameter bytes a rank {[e['param_bytes'] for e in evs]}, unsharded "
+            f"{ref['param_bytes']} (ratio {ratios}); "
+            f"memory a forward added at its peak: ranks "
+            f"{[round(e['peak_added'] / 2**30, 3) for e in evs]} GiB, unsharded "
+            f"{ref['peak_added'] / 2**30:.3f} GiB; ms a forward (CUDA events, 3 calls) "
+            f"ranks {[round(e['forward_ms'], 2) for e in evs]} (both ranks on one card, the "
+            f"channel gathers through host memory), unsharded {ref['forward_ms']:.2f} [{card}]")
+        expect(fwd_rel <= DP_RTOL, f"tensor parallel [{name}]: locs/scores off by {fwd_rel:.2e}")
+        expect(counts_equal and worst <= DP_DET_ATOL,
+               f"tensor parallel [{name}]: detections differ from the unsharded detector's")
+        want = [0, 1, 1] if name == "both" else [0, 0, 0]
+        expect(all(e["forward_launches"] == want and e["step_launches"] == [1, *want[1:]]
+                   for e in evs),
+               f"tensor parallel [{name}]: launches {[e['forward_launches'] for e in evs]}, "
+               f"{[e['step_launches'] for e in evs]} (want {want} a forward and K1 once a step)")
+        out["k1"][f"tensor-parallel eval step [{name}] (per rank)"] = [e["step_launches"][0]
+                                                                       for e in evs]
+        out["k2"][f"tensor-parallel forward + eval step [{name}] (per rank)"] = [
+            e["forward_launches"][1] + e["step_launches"][1] for e in evs]
+        out["k3"][f"tensor-parallel forward + eval step [{name}] (per rank)"] = [
+            e["forward_launches"][2] + e["step_launches"][2] for e in evs]
+        out["timing"][f"eval {name}"] = {
+            "forward_rel": fwd_rel, "detections_max_dist": worst,
+            "param_bytes": [e["param_bytes"] for e in evs],
+            "param_bytes_unsharded": ref["param_bytes"],
+            "peak_added_bytes": [e["peak_added"] for e in evs],
+            "peak_added_bytes_unsharded": ref["peak_added"],
+            "forward_ms": [e["forward_ms"] for e in evs], "forward_ms_unsharded": ref["forward_ms"]}
+        if name == "both":
+            k2_ref = ref["calls"]["k2"][0][4].cpu()
+            maps_ref = ref["calls"]["k3"][0][3]
+            c = k2_ref.shape[1] // 2
+            k2_diff = [int((e["k2_out"] != k2_ref[:, m * c:(m + 1) * c]).sum())
+                       for m, e in enumerate(evs)]
+            k2_err = max(float((e["k2_out"].float() - k2_ref[:, m * c:(m + 1) * c].float())
+                               .abs().max()) for m, e in enumerate(evs))
+            k3_err = max(float((a.float() - b.cpu().float()).abs().max() / b.float().abs().max())
+                         for e in evs for a, b in zip(e["k3_maps"], maps_ref))
+            log(f"  K2 on the channel slice: inputs {[e['k2_input'] for e in evs]} (unsharded "
+                f"{tuple(ref['calls']['k2'][0][0].shape)}), its channels against the unsharded "
+                f"K2's: {k2_diff} differing elements, max abs {k2_err:.3e}; K3 on the gathered "
+                f"channels: inputs {[e['k3_input'] for e in evs]}, its maps against the "
+                f"unsharded K3's, largest difference {k3_err:.3e} of the map's largest [{card}]")
+            out["dw_check"] = (sum(e["dw_check"][0] for e in evs),
+                               max(e["dw_check"][1] for e in evs))
+            out["tail_check"] = (max(e["tail_check"][0] for e in evs),
+                                 [v for e in evs for v in e["tail_check"][1]])
+            out["timing"]["k2_slice_vs_whole"] = {"differing": k2_diff, "max_abs": k2_err}
+            out["timing"]["k3_maps_rel"] = k3_err
+            expect(all(e["k2_input"][1] == c for e in evs),
+                   f"K2 did not take a {c}-channel slice of layer 3")
+            expect(all(e["k3_input"][1] == 2 * c for e in evs),
+                   "K3 did not take the gathered channels")
+
+    # (b) the train step on a 1 x 2 x 2 mesh, in bf16 and in float32
+    def against_unsharded(key, ref):
+        """(relative differences of the metrics, of the gradient vector, the
+        worst counted leaf's norm from the unsharded one's, the BN statistics
+        as one vector, the worst BN statistic leaf, the leaves counted) of the
+        ranks' ``key`` step."""
+        names = list(ref["grads"])
+        g1 = torch.cat([ref["grads"][n].ravel() for n in names])
+        counted = [n for n in names if float(ref["grads"][n].norm()) >= SP_LEAF_FLOOR * g1.norm()]
+        runs = [r[key] for r in train_ranks]
+        rel = {k: max(abs(r["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+                      for r in runs) for k in ("total_loss", "conf_loss", "loc_loss", "grad_norm")}
+        grads_rel = max(float((torch.cat([r["grads"][n].ravel() for n in names]) - g1).norm()
+                              / g1.norm()) for r in runs)
+        leaf = max(abs(float(r["grads"][n].norm() / ref["grads"][n].norm()) - 1)
+                   for r in runs for n in counted)
+        s1 = torch.cat([v.ravel() for v in ref["batch_stats"].values()])
+        stats_all = max(float((torch.cat([r["batch_stats"][n].ravel() for n in ref["batch_stats"]])
+                               - s1).norm() / s1.norm()) for r in runs)
+        stats_leaf = max(float((r["batch_stats"][n] - v).abs().max()
+                               / v.abs().max().clamp(min=1e-12))
+                         for r in runs for n, v in ref["batch_stats"].items())
+        return rel, grads_rel, leaf, stats_all, stats_leaf, len(counted)
+
+    rel, grads_rel, worst_leaf, stats_rel, stats_leaf, n_counted = against_unsharded(
+        "train", ref_train)
+    f_rel, f_grads, f_leaf, _, f_stats_leaf, _ = against_unsharded("train_f32", ref_train_f32)
+    peaks = [r["train"]["peak_added"] for r in train_ranks]
+    log(f"tensor parallel, four gloo ranks sharing the card ({train_ranks[0]['mesh']}; spawned "
+        f"and joined in {train_s:.1f} s): the bf16 train step at {TP_TRAIN_BATCH} x "
+        f"{TRAIN['input_size']} with flips against the unsharded step: relative differences "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in rel.items())}, the gradient vector "
+        f"{grads_rel:.2e}, BN statistics {stats_rel:.2e} (bound {DP_RTOL} each; the worst BN "
+        f"leaf {stats_leaf:.2e} of its largest); the {n_counted} leaves holding >= "
+        f"{SP_LEAF_FLOOR} of the vector's norm within {worst_leaf:.4f} of their norm (bound "
+        f"{SP_LEAF_NORM}) [{card}]")
+    log(f"  the same step in float32: relative differences "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in f_rel.items())}, the gradient vector "
+        f"{f_grads:.2e} (bound {TP_F32_RTOL} each), the worst BN statistic leaf "
+        f"{f_stats_leaf:.2e} of its largest (bound {TP_F32_RTOL}), counted leaves within "
+        f"{f_leaf:.2e} of their norm (bound {TP_F32_LEAF}) [{card}]")
+    log(f"  memory the step added at its peak: ranks {[round(p / 2**30, 3) for p in peaks]} GiB, "
+        f"unsharded {ref_train['peak_added'] / 2**30:.3f} GiB (ratio "
+        f"{[round(p / ref_train['peak_added'], 3) for p in peaks]}); ms a step (CUDA events, 3 "
+        f"steps a round): ranks "
+        f"{[[round(v, 2) for v in r['train']['step_ms']] for r in train_ranks]} (four ranks on "
+        f"one card at once, gathers and halos through host memory), unsharded "
+        f"{[round(v, 2) for v in ref_train['step_ms']]}; launches K1-K3 per rank "
+        f"{[r['train']['launches'] for r in train_ranks]} [{card}]")
+    expect(max(rel.values()) <= DP_RTOL and grads_rel <= DP_RTOL and stats_rel <= DP_RTOL,
+           "the tensor-parallel train step disagrees with the unsharded step")
+    expect(worst_leaf <= SP_LEAF_NORM, f"a gradient leaf's norm is {worst_leaf:.3f} from the "
+                                       "unsharded step's")
+    expect(max(f_rel.values()) <= TP_F32_RTOL and f_grads <= TP_F32_RTOL
+           and f_stats_leaf <= TP_F32_RTOL and f_leaf <= TP_F32_LEAF,
+           "the float32 tensor-parallel train step disagrees with the unsharded step")
+    expect(all(r[k]["launches"] == [0, 0, 0] for r in train_ranks for k in ("train", "train_f32")),
+           "the tensor-parallel train step launched a kernel")
+    out["timing"]["train_step"] = {
+        "relative": rel, "grads_rel": grads_rel, "stats_rel": stats_rel,
+        "stats_worst_leaf": stats_leaf, "worst_counted_leaf": worst_leaf,
+        "float32": {"relative": f_rel, "grads_rel": f_grads, "stats_worst_leaf": f_stats_leaf,
+                    "worst_counted_leaf": f_leaf},
+        "peak_added_bytes": peaks, "peak_added_bytes_unsharded": ref_train["peak_added"],
+        "step_ms": [r["train"]["step_ms"] for r in train_ranks],
+        "step_ms_unsharded": ref_train["step_ms"]}
+
+    # (c) the native loader against its plain version on phase 4c's volumes:
+    # the loads alone (each subject's image, normalised, and segmentation),
+    # then materialize (the loads and the boxes), each in turns
+    root = tmp / "data"
+    generate_dataset(root, num_processes=1, **RECIPE_DATA)
+
+    def module(who):  # a fresh one: a datamodule keeps the samples it loaded
+        cls = SyntheticDataModule if who == "native" else PythonLoaderModule
+        return cls(root, n_classes=1, max_objects=16)
+
+    subjects = module("native").subjects_list
+    times = {"load_native": [], "load_python": [], "native": [], "python": []}
+    arrays = {}
+    for who in ("native", "python", "python", "native"):
+        dm = module(who)
+        t0 = time.perf_counter()
+        for subject in subjects:
+            (partial(dm._load_sample, boxes=False) if who == "python"
+             else partial(native_sample, dm))(subject)
+        times[f"load_{who}"].append(time.perf_counter() - t0)
+    for who in ("native", "python", "python", "native"):
+        dm = module(who)
+        dm.setup("fit")
+        t0 = time.perf_counter()
+        arrays[who] = dm.materialize(dm.subjects_list)
+        times[who].append(time.perf_counter() - t0)
+    a, b = arrays["native"], arrays["python"]
+    image_err = float(np.abs(a["image"] - b["image"]).max())
+    same_boxes = all(np.array_equal(a[k], b[k]) for k in ("boxes", "labels", "box_mask"))
+    log(f"the NIfTI loads of {len(subjects)} subjects of {RECIPE_DATA['image_size']} (image "
+        f"normalised, segmentation): native loader "
+        f"{[round(t, 3) for t in times['load_native']]} s, its plain version (Python decode and "
+        f"normalisation) {[round(t, 3) for t in times['load_python']]} s; materialize (the loads "
+        f"and the boxes): {[round(t, 3) for t in times['native']]} s / "
+        f"{[round(t, 3) for t in times['python']]} s, each in turns; images max abs "
+        f"difference {image_err:.3e}, boxes, labels and masks equal {same_boxes} [{card}]")
+    expect(same_boxes and image_err <= 1e-4,
+           "the native loader's volumes differ from its plain version's")
+    out["timing"]["materialize_s"] = times
+    out["timing"]["native_image_max_abs"] = image_err
+    log(f"tensor-parallel phase {time.perf_counter() - t_phase:.1f} s")
+    check(not failed, "phase 4i: " + "; ".join(failed))
     return out
 
 
@@ -3465,6 +3839,15 @@ def main() -> int:
         profile_detect(name, detectors[name], x, card)
     profile_training(train, card)
 
+    # 4i. tensor parallelism: gloo ranks on 1 x 1 x 2 and 1 x 2 x 2 data x
+    # spatial x model meshes; the native loader. It runs after the times:
+    # rank processes started on the card make this process's profiler drop
+    # kernel records from each later trace (a card run: 2 a trace after two
+    # ranks, 4 after four more; ``utils.profiling.device_ms`` traces again
+    # with more calls where too many are lost).
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        tensor = drive_tensor(card, counters, Path(tmp), cal_state)
+
     # 6. kernels line, card line, result line
     k2 = timed["K2 layer 3 (8, 128, 12, 12, 12) bf16"]
     k2_32 = timed["K2 layer 3 (32, 128, 12, 12, 12) bf16"]
@@ -3649,9 +4032,18 @@ def main() -> int:
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], spatial["dw_check"][1])
     kernels[1]["mismatches"] += spatial["dw_check"][0]
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], spatial["tail_check"][0])
+    # the tensor-parallel path (phase 4i): launches by run, per rank
+    kernels[0]["launches_tensor_parallel"] = tensor["k1"]
+    kernels[1]["launches_tensor_parallel"] = tensor["k2"]
+    kernels[2]["launches_tensor_parallel"] = tensor["k3"]
+    kernels[3]["launches_tensor_parallel"] = {}
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], tensor["dw_check"][1])
+    kernels[1]["mismatches"] += tensor["dw_check"][0]
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], tensor["tail_check"][0])
     log("deployment: " + json.dumps({**deploy["timing"], "card": card}))
     log("data parallel: " + json.dumps({**dp["timing"], "card": card}))
     log("spatial: " + json.dumps({**spatial["timing"], "card": card}))
+    log("tensor parallel: " + json.dumps({**tensor["timing"], "card": card}))
     log("full resolution: " + json.dumps({**full["timing"], "card": card}))
     log("training: " + json.dumps({
         "step_ms": train["step_ms"], "eval_step_ms_batch8": train["eval_ms"],

@@ -10,8 +10,8 @@ augmentation, train / eval / predict steps, the ``Trainer`` loop with
 checkpoints; ``data``: the NIfTI and synthetic pipeline;
 ``python -m mslesions3d_tpu_torch.cli.train``), and runs full-resolution
 volumes: patch training (``data.patches``) and sliding-window inference
-(``sliding_window``), and data-parallel over cards and hosts
-(``parallel``: one rank a card). This package never imports JAX.
+(``sliding_window``), and data-, spatially and tensor-parallel over cards
+and hosts (``parallel``: one rank a card). This package never imports JAX.
 """
 
 from .data.augment import AugmentConfig

@@ -12,9 +12,11 @@ splits are numpy reproductions of sklearn's ``train_test_split`` and
 ``KFold(shuffle=True)`` (:func:`train_test_split`, :func:`kfold_split`):
 the same subjects for a seed, without sklearn.
 
-Volumes are read by the pure-Python NIfTI loader and normalised by
-``t_normalize_intensity``; the JAX package's native C++ loader is a host
-loader, not a kernel, and is not ported yet (ROADMAP item 20).
+The synthetic volumes are read by the native loader (``native/``: gzip
+inflate, the float32 cast and the nonzero normalisation in one C++ call),
+as the JAX package reads them; the BIDS volumes by the pure-Python NIfTI
+loader and ``t_normalize_intensity``, which are also the native loader's
+plain version.
 
 The LesionsDataModule keeps the reference's BIDS path logic
 (datasets.py:238-259) and preprocessing pipeline (datasets.py:195-236); it
@@ -33,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..native import load_nifti_fast
 from ..ops.connected_components import boxes_from_segmentation_device, compact_device_boxes
 from ..train.state import resolve_device
 from .boxes_from_seg import boxes_from_segmentation
@@ -295,17 +298,13 @@ class SyntheticDataModule(_BaseDataModule):
         return boxes, labels.astype(np.int64)
 
     def _load_sample(self, subject):
-        img = load_nifti(self.data_dir / "images" / f"sub-{subject}_image.nii.gz")
-        seg = load_nifti(self.data_dir / "labels" / f"sub-{subject}_seg.nii.gz")
-        sample = {
-            "img": img.data.astype(np.float32),
-            "seg": seg.data,
-            "affine": img.affine,
-            "subject": subject,
-        }
-        # pipeline parity: normalize(nonzero) -> boxes ("classes" mode)
-        # (datasets.py:397-407)
-        sample = t_normalize_intensity(sample, nonzero=True)
+        # the native loader: gzip decode, float32 cast and the nonzero
+        # normalisation (datasets.py:397-407) in one call; the JAX package's
+        # sample on that path, the generator's identity affine included
+        img, _ = load_nifti_fast(self.data_dir / "images" / f"sub-{subject}_image.nii.gz",
+                                 normalize=True)
+        seg, _ = load_nifti_fast(self.data_dir / "labels" / f"sub-{subject}_seg.nii.gz")
+        sample = {"img": img, "seg": seg, "affine": np.eye(4), "subject": subject}
         if self.device_boxes:
             sample["boxes"], sample["labels"] = self._boxes_on_device(sample["seg"])
         else:
@@ -314,6 +313,27 @@ class SyntheticDataModule(_BaseDataModule):
         if self.channels is not None and sample["img"].ndim == 4:
             sample["img"] = np.ascontiguousarray(sample["img"][..., self.channels])
         return sample
+
+
+def stats_foreground(datamodule, subjects=None, verbose: bool = False):
+    """Survey segmentation shapes and voxel spacings over a datamodule.
+
+    The reference's ``stats_foreground`` (datasets.py:338-355): iterates the
+    dataset and returns (all_shapes, all_pixdims), one entry a subject
+    (``subjects``, or every subject of the datamodule). A sample without a
+    recorded pixdim (synthetic data, identity affine) reports (1.0, 1.0, 1.0).
+    """
+    all_shapes, all_pixdims = [], []
+    for s in (subjects if subjects is not None else datamodule.subjects_list):
+        sample = datamodule.get_sample(s)
+        shape = tuple(np.asarray(sample["seg"]).squeeze().shape)
+        if verbose:
+            print(shape)
+        all_shapes.append(shape)
+        pixdim = sample.get("pixdim")
+        all_pixdims.append(tuple(float(x) for x in pixdim[:3])
+                           if pixdim is not None else (1.0, 1.0, 1.0))
+    return all_shapes, all_pixdims
 
 
 class LesionsDataModule(_BaseDataModule):

@@ -1,10 +1,13 @@
-"""Build the port's CUDA sources into shared libraries at first use.
+"""Build the port's native sources into shared libraries at first use.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by nvcc
 for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so`` at the root
-of the checkout, then loaded with ctypes. The hash covers the source and the
-flags, so an edited source builds anew. nvcc is found under ``$CUDA_HOME`` or
-``/usr/local/cuda``. Nothing here runs at import.
+of the checkout, then loaded with ctypes; ``native/nifti_loader.cc`` (the
+host NIfTI loader) is compiled by g++ the same way into ``build/native/``
+(:func:`build_library`). The hash covers the source, the flags and the
+compiler's ``--version``, so an edited source or an upgraded toolkit builds
+anew instead of loading a stale library. nvcc is found under ``$CUDA_HOME``
+or ``/usr/local/cuda``. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import subprocess
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
+BUILD_DIR = BUILD_ROOT / "kernels"
 
 # -fmad=false: no FMA contraction, so float32 arithmetic rounds as the
 # plain torch versions do. -Xptxas -v reports registers, shared memory and
@@ -37,24 +41,43 @@ def find_nvcc() -> Path:
 
 
 @functools.cache
-def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` if needed; returns (library path, nvcc's log)."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+def compiler_version(compiler: str) -> str:
+    """What ``<compiler> --version`` prints (part of every library's hash)."""
+    proc = subprocess.run([compiler, "--version"], capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{compiler} --version failed:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout
+
+
+def build_library(src: Path, compiler: str, flags, out_dir: Path,
+                  libs=()) -> tuple[Path, str]:
+    """Compile ``src`` with ``compiler`` and ``flags`` (linking ``libs``) into
+    ``out_dir/lib<stem>-<hash>.so`` if it is not there yet; returns (library
+    path, the compiler's log). The hash covers the source, the flags, the
+    libraries and the compiler's version. The library is written under a
+    temporary name and renamed, so a concurrent build never loads a partial
+    file. A failed build raises with the compiler's output."""
+    src = Path(src)
+    key = src.read_bytes() + " ".join((*flags, *libs)).encode() + compiler_version(
+        compiler).encode()
+    lib = Path(out_dir) / f"lib{src.stem}-{hashlib.sha256(key).hexdigest()[:16]}.so"
     log = lib.with_suffix(".log")
     if not lib.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [str(find_nvcc()), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True, check=False,
-        )
+        proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src), *libs],
+                              capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"{compiler} failed on {src}:\n{proc.stdout}{proc.stderr}")
         log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+        os.replace(tmp, lib)
     return lib, log.read_text() if log.is_file() else ""
+
+
+@functools.cache
+def build(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` if needed; returns (library path, nvcc's log)."""
+    return build_library(CSRC_DIR / f"{name}.cu", str(find_nvcc()), NVCC_FLAGS, BUILD_DIR)
 
 
 @functools.cache

@@ -28,6 +28,16 @@ slab: every 3^3 conv and the max-pool take their neighbours' boundary planes
 (``parallel.collectives.halo``) and run with depth padding 0, instance norm
 sums over the spatial group, dropout keeps the rank's slab of the global
 mask, and :func:`run_tower` gathers the depth at the cut.
+
+Under a data x spatial x model mesh (``parallel/tensor.py``) each rank holds
+its slice of the sharded parameters, and the layers read from the weights'
+shapes, against the module's whole ones, how the channels lie
+(:func:`model_conv_input`): a conv whose output channels are sharded takes
+every input channel (gathered over the model group) and gives its slice; a
+depthwise conv works on its slice of the channels with no communication; a
+conv whose input channels are sharded sums its partial output over the
+group; BatchNorm, instance norm, the max-pool and the ReLU are per channel
+and stay local. The heads' outputs come back whole.
 """
 
 from __future__ import annotations
@@ -44,13 +54,19 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.depthwise import fold_bn, fused_depthwise_bn_relu_cuda
 from ..parallel.collectives import (
     all_reduce_sum,
+    channel_slice,
+    copy_to_model,
     current_depth,
+    current_model,
     current_split,
     current_stats_group,
     differentiable_all_reduce_sum,
+    gather_channels,
     gather_depth,
     halo,
     past_the_cut,
+    reduce_partial,
+    scatter_channels,
     under_split,
 )
 
@@ -275,6 +291,8 @@ class DepthwiseSeparableBlock(nn.Module):
             depth = current_depth()
             # depth-split: K2 on the haloed slab (planes + 2), its middle planes kept
             x = x if depth is None else halo(x, depth, 1, 1)
+            # channel-split: K2 on this rank's slice of the channels
+            x = model_conv_input(self.conv1, x)[0]
             x = fused_depthwise_bn_relu_cuda(
                 x.contiguous(memory_format=torch.channels_last_3d), self._dw_weights(),
                 gamma, beta,
@@ -286,7 +304,7 @@ class DepthwiseSeparableBlock(nn.Module):
             x = torch.relu(self.bn1(conv3d(self.conv1, x)))
         if self.training:
             return conv_bn_relu_train(self.conv2, self.bn2, x)
-        return torch.relu(self.bn2(self.conv2(x)))
+        return torch.relu(self.bn2(conv3d(self.conv2, x)))
 
 
 # elements of the conv's input or output (the larger) that one chunk of a
@@ -323,13 +341,12 @@ class _ConvBNReLU(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, weight, gamma, beta, conv, bn, keep, padding):
+    def forward(ctx, x, weight, gamma, beta, conv, bn, keep):
         n, c = x.shape[0], weight.shape[0]
         spatial = [(size + 2 * p - d * (k - 1) - 1) // s + 1 for size, k, s, p, d in zip(
-            x.shape[2:], weight.shape[2:], conv.stride, padding, conv.dilation)]
+            x.shape[2:], weight.shape[2:], conv.stride, conv.padding, conv.dilation)]
         chunks = _chunks(n, max(x[0].numel(), c * math.prod(spatial)))
         shape, fmt = (n, c, *spatial), torch.channels_last_3d
-        conv = _ConvSpec(conv.stride, padding, conv.dilation, conv.groups)
         z = None
         if keep:
             z = torch.empty(shape, dtype=x.dtype, device=x.device, memory_format=fmt)
@@ -409,7 +426,7 @@ class _ConvBNReLU(torch.autograd.Function):
             elif need_x:  # one chunk
                 grad_x = gx
         return (grad_x, grad_w.to(weight.dtype), sum_gx.to(gamma.dtype),
-                sum_g.to(beta.dtype), None, None, None, None)
+                sum_g.to(beta.dtype), None, None, None)
 
 
 def _chunks(n: int, per_sample: int) -> list:
@@ -418,7 +435,8 @@ def _chunks(n: int, per_sample: int) -> list:
     return [slice(i, min(i + step, n)) for i in range(0, n, step)]
 
 
-# a conv's stride, padding (the depth's 0 on a haloed slab), dilation and groups
+# a conv's stride, padding (the depth's 0 on a haloed slab), dilation and
+# groups (a depthwise conv's slice of them when its channels are sharded)
 _ConvSpec = collections.namedtuple("_ConvSpec", "stride padding dilation groups")
 
 
@@ -444,11 +462,53 @@ def depth_halo(x: torch.Tensor, kernel: int, stride: int, padding, fill: float =
     return halo(x, depth, lo, hi, fill), (0, *padding[1:])
 
 
-def conv3d(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """``conv(x)``; depth-split, on the haloed slab (:func:`depth_halo`)."""
+def model_conv_input(conv: nn.Conv3d, x: torch.Tensor) -> tuple:
+    """(x as ``conv`` takes it, the groups it runs with, how its output
+    lies) under a model split (``parallel/tensor.py``): "whole" on every
+    rank, "sharded" (this rank's slice of the output channels) or "partial"
+    (this rank's share of a sum over the input channels).
+
+    The conv's weight (its slice under the split) against the module's
+    whole channel counts says which rule sharded it, and ``x``'s channels
+    say whether the input is this rank's slice or whole. A depthwise conv
+    whose groups are sharded takes its slice of ``x``; a conv whose output
+    channels are sharded takes every input channel; one whose input
+    channels are sharded takes its slice; a whole conv takes every input
+    channel. Outside a model split: ``x``, the conv's groups, "whole".
+    """
+    model = current_model()
+    if model is None:
+        return x, conv.groups, "whole"
+    w = conv.weight
+    sharded_in = x.shape[1] < conv.in_channels
+    if conv.groups > 1:  # depthwise: the groups split with the channels
+        if w.shape[0] < conv.out_channels:
+            return (x if sharded_in else scatter_channels(x, model)), w.shape[0], "sharded"
+        return (gather_channels(x, model, partial=False) if sharded_in else x), conv.groups, "whole"
+    if w.shape[0] < conv.out_channels:
+        return (gather_channels(x, model) if sharded_in else copy_to_model(x, model)), 1, "sharded"
+    if w.shape[1] < conv.in_channels:
+        return (x if sharded_in else scatter_channels(x, model)), 1, "partial"
+    return (gather_channels(x, model, partial=False) if sharded_in else x), 1, "whole"
+
+
+def conv3d(conv: nn.Conv3d, x: torch.Tensor, whole: bool = False) -> torch.Tensor:
+    """``conv(x)``; depth-split, on the haloed slab (:func:`depth_halo`);
+    channel-split, as :func:`model_conv_input` says, a partial output summed
+    over the model group and, with ``whole``, a sharded output's channels
+    joined (the heads)."""
     x, padding = depth_halo(x, conv.kernel_size[0], conv.stride[0], conv.padding)
-    return torch.nn.functional.conv3d(x, conv.weight, conv.bias, conv.stride, padding,
-                                      conv.dilation, conv.groups)
+    x, groups, out = model_conv_input(conv, x)
+    bias = conv.bias
+    if out == "partial":
+        y = reduce_partial(torch.nn.functional.conv3d(x, conv.weight, None, conv.stride, padding,
+                                                      conv.dilation, groups), current_model())
+        return y if bias is None else y + bias.to(y.dtype).view(1, -1, 1, 1, 1)
+    y = torch.nn.functional.conv3d(x, conv.weight, bias, conv.stride, padding, conv.dilation,
+                                   groups)
+    if out == "sharded" and whole:
+        y = gather_channels(y, current_model(), partial=False)
+    return y
 
 
 def _chunk_z(conv, x, weight, z, sl):
@@ -463,9 +523,17 @@ def conv_bn_relu_train(conv: nn.Conv3d, bn: BatchNorm3d, x: torch.Tensor,
                        keep: bool = True) -> torch.Tensor:
     """relu(bn(conv(x))) in training mode through :class:`_ConvBNReLU`; equal,
     to float32 rounding, to the plain ``torch.relu(bn(conv(x)))``. Depth-split,
-    the conv runs on the haloed slab (:func:`depth_halo`)."""
+    the conv runs on the haloed slab (:func:`depth_halo`); channel-split, on
+    the input :func:`model_conv_input` gives it (a conv whose input channels
+    are sharded sums its partial output first, then runs the plain BN)."""
     x, padding = depth_halo(x, conv.kernel_size[0], conv.stride[0], conv.padding)
-    return _ConvBNReLU.apply(x, conv.weight, bn.weight, bn.bias, conv, bn, keep, padding)
+    x, groups, out = model_conv_input(conv, x)
+    if out == "partial":  # a sum over the model group first: the plain layers
+        y = torch.nn.functional.conv3d(x, conv.weight, None, conv.stride, padding,
+                                       conv.dilation, groups)
+        return torch.relu(bn(reduce_partial(y, current_model())))
+    spec = _ConvSpec(conv.stride, padding, conv.dilation, groups)
+    return _ConvBNReLU.apply(x, conv.weight, bn.weight, bn.bias, spec, bn, keep)
 
 
 def checkpointed(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -565,26 +633,32 @@ class ConvNormActBlock(nn.Module):
             if generator is None:
                 raise ValueError("ConvNormActBlock: dropout in training needs a generator")
             keep = 1.0 - self.dropout_rate
-            mask = _global_mask(x.shape, current_split(), generator, x.device) < keep
+            mask = _global_mask(x.shape, current_split(), generator, x.device,
+                                self.conv.out_channels) < keep
             x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
         alpha = self.adn["A"].weight.to(x.dtype)
+        if x.shape[1] < self.conv.out_channels:  # channel-split: the slope is shared
+            alpha = copy_to_model(alpha, current_model())
         return torch.where(x >= 0, x, alpha * x)
 
 
-def _global_mask(shape, split, generator, device) -> torch.Tensor:
+def _global_mask(shape, split, generator, device, channels: int) -> torch.Tensor:
     """Uniform draws for the global batch's activation of local ``shape``
-    (N, C, D, H, W): all ranks' rows and the whole depth, of which this rank
-    keeps its rows and its slab."""
+    (N, C, D, H, W), ``channels`` whole: all ranks' rows, the whole depth and
+    every channel, of which this rank keeps its rows, its slab and its slice
+    of the channels."""
     rows = None if split is None else split.rows
     depth = None if split is None else split.depth
     n, d = shape[0], shape[2]
-    whole = (n * (1 if rows is None else rows.size), shape[1],
+    whole = (n * (1 if rows is None else rows.size), channels,
              d * (1 if depth is None else depth.size), *shape[3:])
     u = torch.rand(whole, generator=generator, device=device)
     if rows is not None:
         u = u[rows.rank * n:(rows.rank + 1) * n]
     if depth is not None:
         u = u[:, :, depth.rank * d:(depth.rank + 1) * d]
+    if shape[1] < channels:
+        u = channel_slice(u, split.model)
     return u
 
 

@@ -10,6 +10,11 @@ before the reshape to (B, ·, 6), which is the priors' order.
 Module names follow the reference ``state_dict`` schema: ``base.features.*``,
 ``pred_convs.{loc_convs,cl_convs}.<j>`` (ascending feature layer) and
 ``rescale_factors`` (1, C, 1, 1, 1).
+
+Channel-split (``parallel/tensor.py``: a rank's slices of the sharded
+parameters, through ``functional_call``) the heads give whole outputs on
+every rank: a head whose output channels are sharded joins them, one whose
+input channels are sharded sums its partial output (``layers.conv3d``).
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ import torch
 from torch import nn
 
 from ..ops.nms import detect_objects
+from ..parallel.collectives import current_model, differentiable_all_reduce_sum, past_the_cut
 from .convnet import ConvNetBackbone
-from .layers import INIT_SCHEMES, BatchNorm3d, ConvNormActBlock, init_conv_
+from .layers import INIT_SCHEMES, BatchNorm3d, ConvNormActBlock, conv3d, init_conv_
 from .mobilenet import MobileNetBackbone
 from .priors import default_scales, feature_map_infos, generate_priors
 
@@ -158,10 +164,10 @@ class PredictionHeads(nn.Module):
             x = features[layer]
             batch = x.shape[0]
             # (B, C, D, H, W) -> (B, D, H, W, C) before the reshape: prior order
-            locs.append(loc_conv(x).permute(0, 2, 3, 4, 1).reshape(batch, -1, 6))
-            scores.append(
-                cl_conv(x).permute(0, 2, 3, 4, 1).reshape(batch, -1, self.n_classes)
-            )
+            locs.append(conv3d(loc_conv, x, whole=True).permute(0, 2, 3, 4, 1)
+                        .reshape(batch, -1, 6))
+            scores.append(conv3d(cl_conv, x, whole=True).permute(0, 2, 3, 4, 1)
+                          .reshape(batch, -1, self.n_classes))
         return torch.cat(locs, dim=1), torch.cat(scores, dim=1)
 
 
@@ -239,10 +245,18 @@ class SSD3D(nn.Module):
         # (B, D, H, W, C) -> (B, C, D, H, W) view with channels_last_3d strides
         x = images.to(cfg.compute_dtype).permute(0, 4, 1, 2, 3)
         features = self.base(x, generator)
+        with past_the_cut():  # the backbone's maps are whole in depth
+            return self._heads(features)
+
+    def _heads(self, features: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.config
         if cfg.use_l2_rescale:
             first = min(features)
             f = features[first].float()
-            norm = torch.sqrt(torch.sum(f * f, dim=1, keepdim=True)) + 1e-6
+            squares = torch.sum(f * f, dim=1, keepdim=True)
+            if f.shape[1] < self.pred_convs.loc_convs[0].in_channels:  # channel-split
+                squares = differentiable_all_reduce_sum(squares, current_model())
+            norm = torch.sqrt(squares) + 1e-6
             features = dict(features)
             features[first] = ((f / norm) * self.rescale_factors).to(cfg.compute_dtype)
         return self.pred_convs(features)

@@ -14,6 +14,16 @@ group through :class:`Split`: the BN statistics over the whole world before
 the cut and over the data group after it (:func:`past_the_cut`), instance
 norm over the spatial group, the loss over the data group.
 
+Under a data x spatial x model mesh (``parallel/tensor.py``) the split
+also names the model group, over which the channels of the sharded layers
+lie: a conv that needs every input channel takes them with
+:func:`gather_channels`, a conv that holds a slice of the input channels
+sums its partial output with :func:`reduce_partial`, and a layer whose
+channels are sharded while its input is whole takes its slice with
+:func:`scatter_channels`. The gradients follow one convention: the
+gradient a rank holds of a whole (replicated) activation is the whole
+gradient, and of a sharded one its own slice's.
+
 The reductions are sum-all-reduces or broadcasts, with the tensors of one
 dtype flattened into one buffer: those are the two that the ``gloo``
 backend runs on CUDA tensors as well as CPU ones, and one call a dtype
@@ -37,11 +47,14 @@ class Split:
     """How this rank's activations lie over the ranks: the batch rows split
     over ``rows`` and the volume depth over ``depth`` (each a mesh view with
     ``group``, ``rank``, ``size``; None: whole on this rank). ``both`` is the
-    view over the two together (the world of a data x spatial mesh)."""
+    view over the two together (the world of a data x spatial mesh).
+    ``model`` is the view over which the sharded layers' channels lie
+    (None: every layer whole)."""
 
     rows: object = None
     depth: object = None
     both: object = None
+    model: object = None
 
     @property
     def stats(self):
@@ -79,8 +92,9 @@ def data_parallel(mesh, rows: bool = True):
 
 def past_the_cut():
     """Within the block the depth is whole on every rank (the layers past
-    the cut); the rows stay as they were."""
-    return under_split(None if _SPLIT is None else Split(rows=_SPLIT.rows))
+    the cut); the rows and the channels stay as they were."""
+    return under_split(None if _SPLIT is None else
+                       dataclasses.replace(_SPLIT, depth=None, both=None))
 
 
 def current_split():
@@ -97,6 +111,11 @@ def current_stats_group():
 def current_depth():
     """The spatial view over which the depth is split here, or None."""
     return None if _SPLIT is None else _SPLIT.depth
+
+
+def current_model():
+    """The model view over which the sharded layers' channels lie here, or None."""
+    return None if _SPLIT is None else _SPLIT.model
 
 
 def _in_memory_order(t: torch.Tensor) -> tuple:
@@ -332,3 +351,121 @@ def exchange_rows(tensors: dict, mesh, wanted: list, all_to_all: bool | None = N
         dist.all_to_all(recv, send, group=mesh.group)
         out[k] = torch.cat([r[:n] for r, n in zip(recv, recv_counts)]).to(kind)
     return out
+
+
+def _gather_channel_parts(x: torch.Tensor, view) -> torch.Tensor:
+    """Every rank's channels of ``x`` (N, c, D, H, W), joined in rank order:
+    (N, c n, D, H, W), a ``channels_last_3d`` tensor."""
+    return _ncdhw(torch.cat(_all_gather(_ndhwc(x), view), -1))
+
+
+def channel_slice(x: torch.Tensor, view) -> torch.Tensor:
+    """This rank's slice of the channels (dim 1) of ``x``: the ``view.rank``-th
+    of ``view.size`` equal parts."""
+    c = x.shape[1] // view.size
+    return x[:, view.rank * c:(view.rank + 1) * c]
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The ranks' channel slices joined. The gradient of the whole is either
+    each rank's part of a sum (``partial``: the consumer computed a slice of
+    its output, so the ranks' gradients add, a reduce-scatter) or the same
+    on every rank (the consumer is whole: this rank's slice of it)."""
+
+    @staticmethod
+    def forward(ctx, x, view, partial):
+        ctx.view, ctx.partial = view, partial
+        return _gather_channel_parts(x, view)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.partial:
+            g = _ndhwc(grad).clone()
+            dist.all_reduce(g, group=ctx.view.group)
+            grad = _ncdhw(g)
+        return channel_slice(grad, ctx.view).contiguous(
+            memory_format=torch.channels_last_3d), None, None
+
+
+def gather_channels(x: torch.Tensor, view, partial: bool = True) -> torch.Tensor:
+    """Every channel of ``x`` (N, c, D, H, W), this rank's slice over the
+    model ``view``, on every rank of it, differentiable. ``partial``: the
+    consumer computes this rank's share of its output (a conv whose output
+    channels are sharded), so the backward sums the ranks' gradients before
+    each takes its slice; else the consumer is whole on every rank and the
+    backward takes this rank's slice of its gradient."""
+    return _GatherChannels.apply(x, view, partial)
+
+
+class _ScatterChannels(torch.autograd.Function):
+    """This rank's slice of a whole activation; the backward joins the
+    ranks' slices of the gradient, so the whole's gradient is whole."""
+
+    @staticmethod
+    def forward(ctx, x, view):
+        ctx.view = view
+        return channel_slice(x, view)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_channel_parts(grad, ctx.view), None
+
+
+def scatter_channels(x: torch.Tensor, view) -> torch.Tensor:
+    """This rank's slice of the channels of a whole ``x`` over the model
+    ``view``, differentiable."""
+    return _ScatterChannels.apply(x, view)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """A whole tensor that each rank consumes for its share of the output:
+    the identity, whose backward sums the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, view):
+        ctx.view = view
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum([grad], ctx.view)[0], None
+
+
+def copy_to_model(x: torch.Tensor, view) -> torch.Tensor:
+    """``x`` (whole on every rank of the model ``view``: an activation, or a
+    replicated parameter such as the ConvNet's PReLU slope) as the input of
+    a computation on this rank's share of the channels, differentiable."""
+    return _CopyToModel.apply(x, view)
+
+
+class _ReducePartial(torch.autograd.Function):
+    """The sum of the ranks' partial outputs; its gradient is each rank's
+    gradient of the whole sum, which is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, view):
+        y = _ndhwc(x).clone()
+        dist.all_reduce(y, group=view.group)
+        return _ncdhw(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def reduce_partial(x: torch.Tensor, view) -> torch.Tensor:
+    """``x`` (N, C, D, H, W), this rank's partial sum of a conv over its
+    slice of the input channels, summed over the model ``view``,
+    differentiable."""
+    return _ReducePartial.apply(x, view)
+
+
+def whole_along(t: torch.Tensor, full: int, dim: int, view) -> torch.Tensor:
+    """A parameter ``t`` made whole along ``dim`` (``full`` long) over the
+    model ``view``: the ranks' slices joined when it is sharded there,
+    else ``t`` itself. Not differentiable: the inference path's fused
+    kernels take whole weights."""
+    if view is None or t.shape[dim] == full:
+        return t
+    parts = _all_gather(t.detach().movedim(dim, 0).contiguous(), view)
+    return torch.cat(parts, 0).movedim(0, dim).contiguous()

@@ -13,7 +13,9 @@ needs no launcher: :func:`make_mesh` forms it in the process, the JAX
 package's one-device mesh.
 
 :func:`make_mesh_2d` lays the world out as a data x spatial grid
-(:class:`SpatialMesh`, ``parallel/spatial.py``), with a group for each axis.
+(:class:`SpatialMesh`, ``parallel/spatial.py``), with a group for each axis,
+and :func:`make_mesh_3d` as a data x spatial x model grid
+(:class:`TensorMesh`, ``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,11 @@ class DataMesh:
     @property
     def rows(self) -> "DataMesh":
         """The view over which the batch rows are split: the mesh itself."""
+        return self
+
+    @property
+    def replicas(self) -> "DataMesh":
+        """The view over which the steps sum the gradients: the mesh itself."""
         return self
 
     def split(self, rows: bool = True) -> Split:
@@ -104,6 +111,11 @@ class SpatialMesh:
     def rows(self) -> DataMesh:
         """The view over which the batch rows are split: the data group."""
         return self.data
+
+    @property
+    def replicas(self) -> DataMesh:
+        """The view over which the steps sum the gradients: the world."""
+        return self.world
 
     def describe(self) -> str:
         return (f"data x spatial mesh {self.n_data} x {self.n_spatial}: world size "
@@ -168,6 +180,94 @@ def make_mesh_2d(n_data: int, n_spatial: int, device="cuda",
         world=world,
         data=DataMesh(data_groups[s], d, n_data, world.device, world.backend),
         spatial=DataMesh(spatial_groups[d], s, n_spatial, world.device, world.backend),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMesh(SpatialMesh):
+    """The world as a data x spatial x model grid: rank = (d n_spatial + s)
+    n_model + m, as the JAX package's ``np.reshape(n_data, n_spatial,
+    n_model)`` lays out its devices.
+
+    Beside the :class:`SpatialMesh` views (``data``: the ranks that share
+    this rank's s and m; ``spatial``: those that share its d and m),
+    ``model`` is the ranks that share its d and s, over which the sharded
+    parameters' channels lie (its rank is m), and ``stats`` the ranks that
+    share its m (the data x spatial grid of this channel slice: its rank is
+    d n_spatial + s), over which the batch statistics and the gradients are
+    summed. The steps treat it as a data x spatial mesh whose layers also
+    split their channels.
+    """
+
+    model: DataMesh = None
+    stats: DataMesh = None
+
+    @property
+    def n_model(self) -> int:
+        return self.model.size
+
+    @property
+    def replicas(self) -> DataMesh:
+        """The view over which the steps sum the gradients: every rank that
+        holds this rank's slice of the parameters (the model ranks all
+        compute the same loss, so their sums would count it n_model times)."""
+        return self.stats
+
+    def describe(self) -> str:
+        return (f"data x spatial x model mesh {self.n_data} x {self.n_spatial} x "
+                f"{self.n_model}: world size {self.size}, backend {self.backend}, rank "
+                f"{self.rank} (d {self.data.rank}, s {self.spatial.rank}, m {self.model.rank}) "
+                f"on {self.device}")
+
+    def split(self, rows: bool = True) -> Split:
+        """The layers' view of a step under this mesh: the channels of the
+        sharded layers over the model group, the depth over the spatial group
+        (when it has more than one rank) and, with ``rows``, the batch rows
+        over the data group; the batch statistics over ``stats``."""
+        depth = self.spatial if self.n_spatial > 1 else None
+        return Split(rows=self.data if rows else None, depth=depth, both=self.stats,
+                     model=self.model)
+
+
+def make_mesh_3d(n_data: int, n_spatial: int, n_model: int, device="cuda",
+                 backend: str | None = None) -> TensorMesh:
+    """The data x spatial x model mesh of this process over the world (see
+    :func:`make_mesh` for ``device`` and ``backend``).
+
+    The world must hold exactly ``n_data * n_spatial * n_model`` ranks: a
+    world of another size raises, naming the world to launch. Every rank
+    forms every group, in the same order.
+    """
+    world = make_mesh(device=device, backend=backend)
+    n = n_data * n_spatial * n_model
+    if world.size != n:
+        raise ValueError(f"a data x spatial x model mesh of {n_data} x {n_spatial} x {n_model} "
+                         f"needs a world of {n} ranks, and this one has {world.size}: launch "
+                         f"{n} (torchrun --nproc_per_node {n}, one rank a card)")
+
+    def rank(d, s, m):
+        return (d * n_spatial + s) * n_model + m
+
+    ds, m = divmod(world.rank, n_model)
+    d, s = divmod(ds, n_spatial)
+    model = [[dist.new_group([rank(i, j, k) for k in range(n_model)]) for j in range(n_spatial)]
+             for i in range(n_data)]
+    stats = [dist.new_group([rank(i, j, k) for i in range(n_data) for j in range(n_spatial)])
+             for k in range(n_model)]
+    spatial = [[dist.new_group([rank(i, j, k) for j in range(n_spatial)]) for k in range(n_model)]
+               for i in range(n_data)]
+    data = [[dist.new_group([rank(i, j, k) for i in range(n_data)]) for k in range(n_model)]
+            for j in range(n_spatial)]
+
+    def view(group, r, size):
+        return DataMesh(group, r, size, world.device, world.backend)
+
+    return TensorMesh(
+        world=world,
+        data=view(data[s][m], d, n_data),
+        spatial=view(spatial[d][m], s, n_spatial),
+        model=view(model[d][s], m, n_model),
+        stats=view(stats[m], ds, n_data * n_spatial),
     )
 
 

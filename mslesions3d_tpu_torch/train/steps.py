@@ -37,6 +37,15 @@ data group, and each rank's loss is divided by n_spatial (and by n_data
 where the rows are whole on every data rank) before the backward, so the
 gradients summed over the world count the replicated part once.
 
+Tensor parallelism: given a data x spatial x model mesh
+(``parallel.make_mesh_3d``) and a state of this rank's parameter slices
+(``parallel.shard_tree``), a step runs as under its data x spatial mesh,
+with the layers' channels split over the model group
+(``parallel/tensor.py``). Every model rank computes the whole loss, so the
+gradients are summed over the rank's data x spatial group only
+(``mesh.replicas``), and the gradient norm joins the sharded leaves' squares
+over the model group.
+
 The JAX package's whole-epoch scan is a TPU dispatch workaround that gives
 the same numbers as stepping; the port steps.
 """
@@ -59,7 +68,7 @@ from ..models.losses import multibox_loss_from_config
 from ..models.ssd3d import SSD3D, SSD3DConfig
 from ..ops.nms import detect_objects
 from ..parallel.collectives import all_reduce_sum, data_parallel, exchange_rows, gather_rows
-from ..parallel.mesh import SpatialMesh, local_row_runs, rows_split
+from ..parallel.mesh import SpatialMesh, TensorMesh, local_row_runs, rows_split
 from ..parallel.spatial import depth_slab
 from .state import TrainState
 
@@ -221,7 +230,7 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         grads = gsum if grad_accum == 1 else torch._foreach_div(gsum, float(grad_accum))
         # this rank's shares of the losses and gradients -> the global batch's
         losses, n_pos = all_reduce_sum([torch.stack(losses), box_mask.sum().float()], rows)
-        grads = dict(zip(names, all_reduce_sum(grads, mesh)))
+        grads = dict(zip(names, all_reduce_sum(grads, None if mesh is None else mesh.replicas)))
         total, conf_loss, loc_loss = losses[0] if grad_accum == 1 else losses.mean(0)
 
         updated = state.apply_gradients(grads, new_batch_stats=stats)
@@ -241,7 +250,7 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         streak = torch.where(finite, 0, state.nonfinite_streak + 1).to(torch.int32)
         new_state = new_state.replace(nonfinite_streak=streak)
 
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
+        grad_norm = _global_norm(grads, model, mesh)
         metrics = {
             "total_loss": total,
             "conf_loss": conf_loss,
@@ -263,6 +272,21 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         return new_state, metrics
 
     return step
+
+
+def _global_norm(grads: dict, model: SSD3D, mesh) -> torch.Tensor:
+    """The norm of the whole gradient vector: under a model split the
+    squares of the sharded leaves (slices of the model's whole parameters)
+    summed over the model group, the replicated ones counted once."""
+    norms = torch._foreach_norm(list(grads.values()))
+    if not isinstance(mesh, TensorMesh):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    zero = torch.zeros((), dtype=norms[0].dtype, device=norms[0].device)
+    squares = {True: [zero], False: [zero]}
+    for (n, g), norm in zip(grads.items(), norms):
+        squares[g.shape != model.get_parameter(n).shape].append(norm * norm)
+    (split,) = all_reduce_sum([torch.stack(squares[True]).sum()], mesh.model)
+    return torch.sqrt(split + torch.stack(squares[False]).sum())
 
 
 def _select(finite: torch.Tensor, new: TrainState, old: TrainState) -> TrainState:

@@ -21,7 +21,9 @@ running_mean/running_var. The ConvNet's blocks follow MONAI's
 ``Convolution`` (``conv``, then ``adn`` whose PReLU is ``A``); its
 max-pool layers hold no variables, and it has no ``batch_stats``.
 :func:`from_jax_params` maps a tree shaped like ``params`` alone, such as a
-gradient tree, onto the parameter names.
+gradient tree, onto the parameter names. :func:`from_jax_classifier_variables`
+carries the JAX package's ``MobileNetClassifier`` (``layer_<i>`` ->
+``features.<i>``, ``head/kernel`` (I, O) -> ``head.weight`` (O, I)).
 """
 
 from __future__ import annotations
@@ -56,11 +58,12 @@ def _bn_children(layer: dict):
     return (("bn1", "dw_bn"), ("bn2", "pw_bn"))
 
 
-def from_jax_params(params: dict, config) -> dict:
-    """A tree shaped like the JAX SSD3D ``params`` -> {port parameter name: tensor}."""
+def _layer_params(layers: dict, base: str) -> dict:
+    """{port name: tensor} of the ``layer_<i>`` variables of ``layers``,
+    module ``<base>.<i>``."""
     out: dict = {}
-    for i, layer in _layers(params["backbone"]):
-        prefix = f"base.features.{i}"
+    for i, layer in _layers(layers):
+        prefix = f"{base}.{i}"
         if "prelu_alpha" in layer:
             out[f"{prefix}.conv.weight"] = _conv_weight(layer["conv"]["kernel"])
             out[f"{prefix}.conv.bias"] = _tensor(layer["conv"]["bias"])
@@ -73,7 +76,12 @@ def from_jax_params(params: dict, config) -> dict:
         for ours, theirs in _bn_children(layer):
             out[f"{prefix}.{ours}.weight"] = _tensor(layer[theirs]["scale"])
             out[f"{prefix}.{ours}.bias"] = _tensor(layer[theirs]["bias"])
+    return out
 
+
+def from_jax_params(params: dict, config) -> dict:
+    """A tree shaped like the JAX SSD3D ``params`` -> {port parameter name: tensor}."""
+    out = _layer_params(params["backbone"], "base.features")
     heads = params["heads"]
     for j, layer in enumerate(sorted(config.feature_layers)):
         for ours, theirs in (("loc_convs", "loc"), ("cl_convs", "cls")):
@@ -84,22 +92,41 @@ def from_jax_params(params: dict, config) -> dict:
     return out
 
 
-def from_jax_batch_stats(params: dict, batch_stats: dict) -> dict:
-    """JAX ``batch_stats`` -> {port running_mean / running_var name: tensor}."""
+def _layer_stats(layers: dict, stats: dict, base: str) -> dict:
+    """{port running_mean / running_var name: tensor} of the ``layer_<i>``
+    BNs of ``layers`` (their statistics in ``stats``), module ``<base>.<i>``."""
     out: dict = {}
-    stats = batch_stats.get("backbone", {})
-    for i, layer in _layers(params["backbone"]):
+    for i, layer in _layers(layers):
         for ours, theirs in _bn_children(layer):
-            prefix = f"base.features.{i}.{ours}"
+            prefix = f"{base}.{i}.{ours}"
             out[f"{prefix}.running_mean"] = _tensor(stats[f"layer_{i}"][theirs]["mean"])
             out[f"{prefix}.running_var"] = _tensor(stats[f"layer_{i}"][theirs]["var"])
     return out
 
 
-def from_jax_variables(params: dict, batch_stats: dict, config) -> dict:
-    """JAX SSD3D ``params`` / ``batch_stats`` trees -> this package's state_dict."""
-    state = {**from_jax_params(params, config), **from_jax_batch_stats(params, batch_stats)}
+def from_jax_batch_stats(params: dict, batch_stats: dict) -> dict:
+    """JAX ``batch_stats`` -> {port running_mean / running_var name: tensor}."""
+    return _layer_stats(params["backbone"], batch_stats.get("backbone", {}), "base.features")
+
+
+def _with_counters(state: dict) -> dict:
+    """``state`` with the ``num_batches_tracked`` buffer of every BN (zero)."""
     for key in [k for k in state if k.endswith(".running_var")]:
         state[key.replace(".running_var", ".num_batches_tracked")] = torch.zeros(
             (), dtype=torch.long)
     return state
+
+
+def from_jax_variables(params: dict, batch_stats: dict, config) -> dict:
+    """JAX SSD3D ``params`` / ``batch_stats`` trees -> this package's state_dict."""
+    return _with_counters({**from_jax_params(params, config),
+                           **from_jax_batch_stats(params, batch_stats)})
+
+
+def from_jax_classifier_variables(params: dict, batch_stats: dict) -> dict:
+    """The JAX package's ``MobileNetClassifier`` ``params`` / ``batch_stats``
+    -> the ``state_dict`` of this package's ``models.mobilenet.MobileNetClassifier``."""
+    state = {**_layer_params(params, "features"), **_layer_stats(params, batch_stats, "features"),
+             "head.weight": _tensor(np.asarray(params["head"]["kernel"]).T),
+             "head.bias": _tensor(params["head"]["bias"])}
+    return _with_counters(state)

@@ -365,3 +365,23 @@ def test_prefetch_reraises_the_producers_error():
     assert next(it)["image"].shape == (2,)
     with pytest.raises(OSError, match="disk went away"):
         next(it)
+
+
+@pytest.mark.parametrize("kind", ["synthetic", "lesions"])
+def test_stats_foreground_equals_jax(synthetic_root, tmp_path, kind):
+    """The dataset survey: each subject's segmentation shape and voxel
+    spacing, (1.0, 1.0, 1.0) where no pixdim is recorded (the synthetic
+    volumes), the BIDS files' own where it is."""
+    if kind == "synthetic":
+        jm, pm = _modules(synthetic_root)
+    else:
+        root = make_bids_tree(tmp_path, subjects=("001", "002", "003"))
+        kw = dict(data_dir=root, centers=("CHUV_RIM_OK",), batch_size=2,
+                  spatial_size=(40, 44, 44), max_objects=4)
+        jm, pm = jax_datasets.LesionsDataModule(**kw), datasets.LesionsDataModule(**kw)
+    ours, ref = datasets.stats_foreground(pm), jax_datasets.stats_foreground(jm)
+    assert ours == ref and len(ours[0]) == len(pm.subjects_list) > 0
+    subset = pm.subjects_list[:2]
+    assert datasets.stats_foreground(pm, subset) == jax_datasets.stats_foreground(jm, subset)
+    if kind == "synthetic":
+        assert ours[0] == [(16, 16, 16)] * 13 and ours[1] == [(1.0, 1.0, 1.0)] * 13

@@ -137,3 +137,75 @@ def test_state_dict_schema_is_complete(pair):
     ours = pair["port"].state_dict()
     assert "base.features.0.0.weight" in ours and "pred_convs.cl_convs.2.bias" in ours
     assert ours["rescale_factors"].shape[0] == 1 and ours["rescale_factors"].dim() == 5
+
+
+# ------------------------------------------------------------------ classifier
+def _classifier_pair(seed=0):
+    from mslesions3d_tpu.models import MobileNetClassifier as JaxClassifier
+
+    x = np.random.default_rng(seed).normal(size=(1, 32, 48, 48, 1)).astype(np.float32)
+    jmodel = JaxClassifier(num_classes=3, width_mult=0.25)
+    variables = jax.device_get(jmodel.init(jax.random.PRNGKey(seed), jnp.asarray(x),
+                                           train=False))
+    return jmodel, variables, x
+
+
+def test_mobilenet_classifier_equals_jax():
+    """The JAX test's classifier (width 0.25, 3 classes, a (1, 32, 48, 48, 1)
+    input, not a cube: first stride (1, 2, 2)) on JAX's weights: eval logits
+    within 1e-5, and a training forward moves the BN running statistics as
+    JAX's does (dropout's masks are each framework's own draw)."""
+    from mslesions3d_tpu_torch.models.mobilenet import MobileNetClassifier
+    from mslesions3d_tpu_torch.weights import from_jax_classifier_variables
+
+    jmodel, variables, x = _classifier_pair()
+    model = MobileNetClassifier(num_classes=3, width_mult=0.25)
+    model.load_state_dict(from_jax_classifier_variables(variables["params"],
+                                                        variables["batch_stats"]))
+    with torch.no_grad():
+        ours = model.eval()(torch.from_numpy(x))
+    ref = jmodel.apply(variables, jnp.asarray(x), train=False)
+    assert ours.shape == (1, 3)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    assert float(np.abs(np.asarray(ref)).max()) > 1e-3
+    _, mutated = jmodel.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"],
+                              rngs={"dropout": jax.random.PRNGKey(1)})
+    out = model.train()(torch.from_numpy(x), torch.Generator().manual_seed(1))
+    assert out.shape == (1, 3) and torch.isfinite(out).all() and out.requires_grad
+    moved = from_jax_classifier_variables(variables["params"], mutated["batch_stats"])
+    for key, value in moved.items():
+        if key.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(model.state_dict()[key].numpy(), value.numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=key)
+    with pytest.raises(ValueError, match="needs a generator"):
+        model(torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("scheme", ["torch", "flax"])
+def test_mobilenet_classifier_init_equals_jax_scheme(scheme):
+    """The classifier's own init: every leaf's shape JAX's (by the mapping),
+    "torch" within U(+-1/sqrt(fan_in)) with nonzero biases, "flax" with zero
+    biases; the same generator seed gives the same weights."""
+    from mslesions3d_tpu.models import MobileNetClassifier as JaxClassifier
+    from mslesions3d_tpu_torch.models.mobilenet import MobileNetClassifier
+    from mslesions3d_tpu_torch.weights import from_jax_classifier_variables
+
+    x = jnp.zeros((1, 32, 48, 48, 1))
+    variables = jax.device_get(JaxClassifier(num_classes=3, width_mult=0.25, init_scheme=scheme)
+                               .init(jax.random.PRNGKey(0), x, train=False))
+    theirs = from_jax_classifier_variables(variables["params"], variables["batch_stats"])
+    model = MobileNetClassifier(num_classes=3, width_mult=0.25, init_scheme=scheme,
+                                generator=torch.Generator().manual_seed(0))
+    ours = model.state_dict()
+    assert ours.keys() == theirs.keys()
+    for key, value in ours.items():
+        assert value.shape == theirs[key].shape, key
+    bound = 1.0 / model.head.in_features ** 0.5
+    if scheme == "torch":
+        assert model.head.weight.abs().max() <= bound and model.head.bias.any()
+        np.testing.assert_array_less(np.abs(theirs["head.bias"].numpy()), bound)
+    else:
+        assert not model.head.bias.any() and not theirs["head.bias"].any()
+    again = MobileNetClassifier(num_classes=3, width_mult=0.25, init_scheme=scheme,
+                                generator=torch.Generator().manual_seed(0))
+    assert all(torch.equal(v, again.state_dict()[k]) for k, v in ours.items())

@@ -9,10 +9,21 @@ state of the port, against the JAX package where it has a counterpart.
   each scheduler: params and moments within 1e-6 of each leaf's largest
   value, ``rescale_factors`` moving under L2 decay with a zero gradient,
   the bias group at 2x lr.
-* Init schemes "flax" and "kaiming_relu" (their bounds and zero biases,
-  from an explicit generator), float32 masters, device rules, and the
-  options this slice leaves out (``remat`` in training, ``patch_training``).
+* Init schemes "torch", "flax" and "kaiming_relu" (their bounds and
+  biases, from an explicit generator), float32 masters, device rules, and
+  the options this slice leaves out (``remat`` in training,
+  ``patch_training``).
+* The "torch" scheme's draws against JAX's, leaf by leaf, on the 4k
+  recipe's model (``cli/recipe.py``: width 1.0, 2 classes, bpl 3, 64^3)
+  from seeds 0, 1 and 2 in both frameworks: every leaf's shape (mapped by
+  ``weights.from_jax_variables``), its support (max |w| within the bound
+  1 / sqrt(fan_in), and reaching it where the leaf is large), its mean and
+  standard deviation within 5 standard errors of U(-bound, bound)'s for the
+  leaf's size, and of each other's; the BN scale, bias and statistics and
+  ``rescale_factors`` equal.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +32,10 @@ import pytest
 import torch
 from flax import linen as fnn
 
+from mslesions3d_tpu.models import SSD3D as JaxSSD3D
+from mslesions3d_tpu.models import SSD3DConfig as JaxConfig
 from mslesions3d_tpu.models.layers import BatchNorm3d as JaxBatchNorm3d
+from mslesions3d_tpu.train.state import create_train_state as jax_create_train_state
 from mslesions3d_tpu.train.state import make_optimizer as jax_make_optimizer
 from mslesions3d_tpu_torch.models.layers import TRUNCATED_NORMAL_STD, BatchNorm3d
 from mslesions3d_tpu_torch.models.ssd3d import SSD3D, SSD3DConfig, model_priors
@@ -29,6 +43,7 @@ from mslesions3d_tpu_torch.serving import Detector
 from mslesions3d_tpu_torch.train import state as train_state
 from mslesions3d_tpu_torch.train.state import AdamL2, create_train_state, eval_view
 from mslesions3d_tpu_torch.train.steps import make_eval_step, make_train_step
+from mslesions3d_tpu_torch.weights import from_jax_variables
 
 SMALL = dict(n_classes=2, input_channels=1, input_size=(16, 16, 16), width_mult=0.25, lr=1e-3,
              threshold=(0.1, 0.2))
@@ -225,13 +240,21 @@ def _convs(model):
     return [m for m in model.modules() if isinstance(m, torch.nn.Conv3d)]
 
 
-@pytest.mark.parametrize("scheme", ["flax", "kaiming_relu"])
+@pytest.mark.parametrize("scheme", ["torch", "flax", "kaiming_relu"])
 def test_init_schemes(scheme):
     cfg = SSD3DConfig.create(**SMALL, init_scheme=scheme)
     model = SSD3D(cfg, generator=torch.Generator().manual_seed(0))
     for conv in _convs(model):
         w = conv.weight.detach()
         fan_in = w.shape[1] * 27 if w.shape[2] == 3 else w.shape[1]
+        if scheme == "torch":  # U(+-1/sqrt(fan_in)) weights and biases
+            bound = (1.0 / fan_in) ** 0.5
+            assert w.abs().max() <= bound * (1 + 1e-6)
+            if w.numel() >= 2000:
+                assert abs(float(w.std()) / (bound / 3 ** 0.5) - 1) < 0.1
+            if conv.bias is not None:
+                assert conv.bias.abs().max() <= bound * (1 + 1e-6) and conv.bias.any()
+            continue
         if scheme == "flax":
             std = (1.0 / fan_in) ** 0.5 / TRUNCATED_NORMAL_STD
             assert w.abs().max() <= 2 * std * (1 + 1e-6)
@@ -250,6 +273,72 @@ def test_init_schemes(scheme):
     assert not torch.equal(model.state_dict()[key], other.state_dict()[key])
     with pytest.raises(ValueError, match="init_scheme"):
         SSD3D(SSD3DConfig.create(**SMALL, init_scheme="xavier"))
+
+
+# the 4k recipe's model (cli/recipe.py: -bpl 3, -th 0.1 0.2, -lr 0.003)
+RECIPE_MODEL = dict(n_classes=2, input_channels=1, input_size=(64, 64, 64), width_mult=1.0,
+                    boxes_per_location=3, threshold=(0.1, 0.2), lr=0.003)
+SIGMAS = 5.0
+
+
+@pytest.fixture(scope="module")
+def recipe_draws():
+    """{seed: (JAX's initial params and statistics as the port's state dict,
+    the port's initial state dict)} for the recipe's model, "torch" scheme."""
+    jcfg, cfg = JaxConfig.create(**RECIPE_MODEL), SSD3DConfig.create(**RECIPE_MODEL)
+    assert jcfg.init_scheme == cfg.init_scheme == "torch"
+    out = {}
+    for seed in (0, 1, 2):
+        jstate = jax_create_train_state(JaxSSD3D(jcfg), jcfg, jax.random.PRNGKey(seed))
+        theirs = from_jax_variables(jax.device_get(jstate.params),
+                                    jax.device_get(jstate.batch_stats), cfg)
+        ours = create_train_state(cfg, seed=seed, device="cpu").state_dict()
+        out[seed] = (theirs, ours)
+    return out
+
+
+def _uniform_bound(name: str, shape) -> float:
+    """1 / sqrt(fan_in) of a conv weight or bias (fan_in = C_in / groups x
+    the kernel's volume: its weight's shape[1:])."""
+    weight = RECIPE_SHAPES[name.replace(".bias", ".weight")]
+    return 1.0 / math.prod(weight[1:]) ** 0.5
+
+
+RECIPE_SHAPES = {n: tuple(p.shape) for n, p in SSD3D(
+    SSD3DConfig.create(**RECIPE_MODEL)).state_dict().items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_torch_init_draws_match_jax(recipe_draws, seed):
+    theirs, ours = recipe_draws[seed]
+    assert ours.keys() == theirs.keys() == RECIPE_SHAPES.keys()
+    for name, t in ours.items():
+        j = theirs[name]
+        assert tuple(t.shape) == tuple(j.shape) == RECIPE_SHAPES[name], name
+        if name.endswith("num_batches_tracked"):
+            continue
+        conv_weight = t.dim() == 5 and name != "rescale_factors"
+        conv_bias = name.startswith("pred_convs.") and name.endswith(".bias")
+        if not (conv_weight or conv_bias):
+            # BN scale 1, bias 0, running mean 0, var 1; rescale_factors 20
+            torch.testing.assert_close(t.float(), j.float(), rtol=0, atol=0, msg=name)
+            continue
+        bound = _uniform_bound(name, t.shape)
+        n = t.numel()
+        for values in (t.double(), j.double()):
+            assert float(values.abs().max()) <= bound * (1 + 1e-6), name
+            if n >= 1000:  # a uniform sample of n reaches within 40 / n of its bound
+                assert float(values.abs().max()) >= bound * (1 - 40.0 / n), name
+            # U(-b, b): mean 0 (standard error b / sqrt(3 n)), std b / sqrt(3)
+            # (relative standard error sqrt(0.2 / n))
+            assert abs(float(values.mean())) <= SIGMAS * bound / math.sqrt(3 * n), name
+            assert abs(float(values.std()) / (bound / math.sqrt(3)) - 1) <= \
+                SIGMAS * math.sqrt(0.2 / n) + 1.0 / n, name
+        # and the two against each other
+        assert abs(float(t.double().mean() - j.double().mean())) <= \
+            SIGMAS * bound * math.sqrt(2.0 / (3 * n)), name
+        assert abs(float(t.double().std() / j.double().std()) - 1) <= \
+            SIGMAS * math.sqrt(0.4 / n) + 2.0 / n, name
 
 
 def test_train_state_masters_are_float32_draws():

@@ -1,4 +1,4 @@
-"""One rank of a gloo group on the CPU, for tests/test_torch_port_{parallel,spatial}.py.
+"""One rank of a gloo group on the CPU, for tests/test_torch_port_{parallel,spatial,tensor_parallel}.py.
 
     python tests/torch_parallel_worker.py <task> <rank> <world> <port> <dir>
 
@@ -8,9 +8,11 @@ The rank joins the group through ``parallel.initialize_multihost``: the
 test). It runs the task on the inputs the test saved in ``<dir>`` and saves
 what it computed to ``<dir>/<task>_<rank>.pt``. The data-parallel tasks run
 in a world of 2, the spatial ones in a world of 4 (a 2 x 2 data x spatial
-mesh, and a 1 x 4 one). This module imports no JAX: the test holds the
-results against the JAX package, and imports ``batch_norm``, ``run_variant``
-and ``spatial_forward`` to run them without a mesh.
+mesh, and a 1 x 4 one), the ``tensor`` task in a world of 2 (a 1 x 1 x 2
+data x spatial x model mesh) or 4 (1 x 1 x 4 and 1 x 2 x 2). This
+module imports no JAX: the test holds the results against the JAX package,
+and imports ``batch_norm``, ``run_variant``, ``spatial_forward``,
+``tensor_forward`` and ``tensor_step`` to run them without a mesh.
 """
 
 import contextlib
@@ -35,10 +37,15 @@ from mslesions3d_tpu_torch.parallel import (  # noqa: E402
     local_row_runs,
     make_mesh,
     make_mesh_2d,
+    make_mesh_3d,
     make_spatially_sharded_forward,
+    make_tensor_parallel_forward,
     process_batch_slice,
     shard_batch,
     shard_global_batch,
+    shard_tree,
+    tensor_sharding,
+    unshard_tree,
 )
 from mslesions3d_tpu_torch.train import (  # noqa: E402
     create_train_state,
@@ -283,9 +290,70 @@ def task_spatial_trainer(world, root: Path) -> dict:
     return results
 
 
+def tensor_forward(f: dict, mesh) -> dict:
+    """(locs, scores, K2 and K3 input shapes) of a forward case on the whole
+    batch; under a data x spatial x model mesh through
+    ``make_tensor_parallel_forward`` (this rank's slices of ``source``)."""
+    cfg = SSD3DConfig.create(**f["kw"])
+    model = SSD3D(cfg)
+    with recorded_kernels() as calls:
+        if mesh is None:
+            model.load_state_dict(f["source"])
+            with torch.no_grad():
+                locs, scores = model.eval()(torch.from_numpy(f["x"]))
+        else:
+            locs, scores = make_tensor_parallel_forward(model, mesh)(f["source"], f["x"])
+    return {"locs": locs, "scores": scores, **calls}
+
+
+def tensor_step(v: dict, mesh) -> dict:
+    """One train step of a variant, and the eval step on its batch, with
+    ``return_grads``: on the whole state and batch without a mesh; under a
+    data x spatial x model mesh on this rank's slices of the state and rows
+    of the batch. The params, BN statistics and gradients come back whole
+    (joined over the model group); ``local_grads`` are this rank's own."""
+    cfg = SSD3DConfig.create(**v["kw"])
+    model, priors = SSD3D(cfg), model_priors(cfg)
+    state = create_train_state(cfg, device="cpu", state_dict=v["source"])
+    opts = dict(v["opts"])
+    augment = AugmentConfig(**opts.pop("augment", {}))
+    step = make_train_step(cfg, model, priors, augment=augment, mesh=mesh, return_grads=True,
+                           **opts)
+    evaluate = make_eval_step(cfg, model, priors, mesh=mesh)
+    batch = v["batch"]
+    if mesh is not None:
+        specs = tensor_sharding(state, mesh)
+        state = shard_tree(state, mesh)
+        batch = shard_batch(batch, mesh, opts.get("grad_accum", 1))
+    new, m = step(state, batch, torch.Generator().manual_seed(v["seed"]))
+    ev = evaluate(state, batch)
+    out = step_outputs(new, m)
+    out["eval"] = {k: ev[k] for k in ("total_loss", "conf_loss", "loc_loss", "detections")}
+    if mesh is not None:
+        out["local_grads"] = m["grads"]
+        out.update(params=unshard_tree(new.params, mesh, specs.params),
+                   batch_stats=unshard_tree(new.batch_stats, mesh, specs.batch_stats),
+                   grads=unshard_tree(m["grads"], mesh, specs.params))
+    return out
+
+
+def task_tensor(world, root: Path) -> dict:
+    inputs = torch.load(root / "inputs.pt", weights_only=False)
+    results = {}
+    for shape in inputs["meshes"][world.size]:
+        mesh = make_mesh_3d(*shape, device="cpu")
+        results[shape] = {
+            "mesh": (mesh.data.rank, mesh.spatial.rank, mesh.model.rank, mesh.describe()),
+            "forward": {name: tensor_forward(f, mesh) for name, f in inputs["forwards"].items()},
+            "steps": {name: tensor_step(v, mesh) for name, v in inputs["variants"].items()
+                      if shape in v.get("meshes", [shape])},
+        }
+    return results
+
+
 def main(task: str, rank: int, world: int, port: int, root: str) -> None:
     root = Path(root)
-    if task in ("steps", "spatial"):
+    if task in ("steps", "spatial", "tensor"):
         initialize_multihost(f"127.0.0.1:{port}", world, rank, device="cpu",
                              timeout_s=120 if task == "steps" else 300)
     else:  # torchrun's environment, set by the test
@@ -293,7 +361,7 @@ def main(task: str, rank: int, world: int, port: int, root: str) -> None:
     mesh = make_mesh(device="cpu")
     assert (mesh.rank, mesh.size, mesh.backend) == (rank, world, "gloo")
     results = {"steps": task_steps, "trainer": task_trainer, "spatial": task_spatial,
-               "spatial_trainer": task_spatial_trainer}[task](mesh, root)
+               "spatial_trainer": task_spatial_trainer, "tensor": task_tensor}[task](mesh, root)
     torch.save(results, root / f"{task}_{rank}.pt")
     torch.distributed.destroy_process_group()
 

@@ -6,6 +6,7 @@ Run from the root of a checkout:
 
     python3 trained_check.py              # seeds 970205, 1 and 2, one process each, at once
     python3 trained_check.py --seeds 970205 --out results/
+    python3 trained_check.py --seeds 970205 1 2 970205   # a seed twice: its repeat
 
 It generates the recipe's dataset (``mslesions3d_tpu_torch/cli/recipe.py``:
 200 volumes of 64^3, objects of 6-14 voxels, 1-5 of them, seed 0) into a
@@ -16,7 +17,11 @@ at 4000 steps, then ``cli.predict -ps validation -sc 0.0 -k 100 -si 0`` and
 reduced by ``cli.plots.operating_points`` (mAP and best F1 over the score
 grid, per IoU). ``cli.train`` runs the float32 recipe in IEEE float32 (TF32
 off, ``train.state.use_ieee_float32``), and so does all that follows it in
-the process. On the served path at min_score 0.5 it also counts,
+the process. Every worker runs with cuDNN's deterministic algorithms
+(``torch.backends.cudnn.deterministic``), so a seed repeats bit for bit
+and the spread over seeds is the seeds' own, not run-to-run noise; each
+result records the setting. A seed given twice runs twice, its k-th
+repeat written to ``seed<S>_r<k>.json``. On the served path at min_score 0.5 it also counts,
 over the validation volumes, the candidates above the score (the valid
 share of the K a row), K1's kept ones (held against the plain NMS), and
 the kept candidates that a one-pass NMS would have dropped (suppression
@@ -101,6 +106,10 @@ def worker(seed: int, data: Path, out: Path) -> dict:
     from mslesions3d_tpu_torch.cli import predict as predict_cli
     from mslesions3d_tpu_torch.cli import train as train_cli
 
+    # without it a seed does not repeat on the card: cuDNN's default
+    # algorithms sum in an order that varies from run to run
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     logs = out / "logs"
     t0 = time.perf_counter()
     result = train_cli.main(["-d", str(data), *recipe.TRAIN_FLAGS, "-mi", str(recipe.STEPS),
@@ -131,23 +140,38 @@ def worker(seed: int, data: Path, out: Path) -> dict:
             "scored": scored, "card": card(), "wall_s": time.perf_counter() - t0,
             # what cli.train left set: the float32 recipe ran without TF32
             "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
-                     "matmul": torch.backends.cuda.matmul.allow_tf32}}
+                     "matmul": torch.backends.cuda.matmul.allow_tf32},
+            "cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "train_losses": [v for e in result["timings"]["epochs"] for v in e["train_losses"]]}
+
+
+def run_names(seeds) -> list:
+    """(seed, result name) of each run: ``seed<S>``, then ``seed<S>_r<k>``
+    for the k-th repeat of a seed given again."""
+    seen: dict = {}
+    names = []
+    for s in seeds:
+        k = seen.get(s, 0)
+        seen[s] = k + 1
+        names.append((s, f"seed{s}" if k == 0 else f"seed{s}_r{k}"))
+    return names
 
 
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
     p.add_argument("--out", type=Path, default=Path("build/trained_check"))
-    p.add_argument("--worker", nargs=3, metavar=("SEED", "DATA", "OUT"), default=None,
+    p.add_argument("--worker", nargs=4, metavar=("SEED", "NAME", "DATA", "OUT"), default=None,
                    help="run one seed on a generated dataset (what the parent starts)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("trained_check: no CUDA device is available; it runs on a card", file=sys.stderr)
         return 1
     if args.worker:
-        seed, data, out = int(args.worker[0]), Path(args.worker[1]), Path(args.worker[2])
-        res = worker(seed, data, out)
-        (args.out / f"seed{seed}.json").write_text(json.dumps(res, indent=1))
+        seed, name = int(args.worker[0]), args.worker[1]
+        data, out = Path(args.worker[2]), Path(args.worker[3])
+        res = dict(worker(seed, data, out), run=name)
+        (args.out / f"{name}.json").write_text(json.dumps(res, indent=1))
         print(json.dumps(res))
         return 0
     args.out.mkdir(parents=True, exist_ok=True)
@@ -162,30 +186,39 @@ def main() -> int:
         t0 = time.perf_counter()
         procs, logs = {}, []
         try:
-            for s in args.seeds:
-                logs.append(open(args.out / f"seed{s}.log", "w"))
-                procs[s] = subprocess.Popen(
-                    [sys.executable, __file__, "--worker", str(s), str(data),
-                     str(Path(tmp) / f"s{s}"), "--out", str(args.out)],
+            for s, name in run_names(args.seeds):
+                logs.append(open(args.out / f"{name}.log", "w"))
+                procs[name] = subprocess.Popen(
+                    [sys.executable, __file__, "--worker", str(s), name, str(data),
+                     str(Path(tmp) / name), "--out", str(args.out)],
                     stdout=logs[-1], stderr=subprocess.STDOUT)
-            rcs = {s: p.wait() for s, p in procs.items()}
+            rcs = {name: p.wait() for name, p in procs.items()}
         finally:
             for f in logs:
                 f.close()
         print(f"# all seeds in {time.perf_counter() - t0:.1f} s (concurrent, one card); rcs {rcs}",
               flush=True)
-    for s in args.seeds:
-        p = args.out / f"seed{s}.json"
+    results = {}
+    for s, name in run_names(args.seeds):
+        p = args.out / f"{name}.json"
         if p.exists():
-            r = json.loads(p.read_text())
+            r = results[name] = json.loads(p.read_text())
             for tag, sc in r["scored"].items():
-                print(s, tag, {k: v for k, v in sc.items() if k != "served_path_at_0.5"},
+                print(name, tag, {k: v for k, v in sc.items() if k != "served_path_at_0.5"},
                       {k: v for k, v in sc["served_path_at_0.5"].items() if k != "valid_per_row"})
-            print(s, "train_s", r["train_s"], "steps", r["steps"], "wall_s", r["wall_s"],
-                  "tf32", r["tf32"])
+            print(name, "train_s", r["train_s"], "steps", r["steps"], "wall_s", r["wall_s"],
+                  "tf32", r["tf32"], "cudnn_deterministic", r["cudnn_deterministic"])
         else:
-            print(s, "no result; tail of the log:")
-            print((args.out / f"seed{s}.log").read_text()[-3000:])
+            print(name, "no result; tail of the log:")
+            print((args.out / f"{name}.log").read_text()[-3000:])
+    for s, name in run_names(args.seeds):  # a repeat against the seed's first run
+        first = f"seed{s}"
+        if name != first and name in results and first in results:
+            a, b = results[first], results[name]
+            same = a["train_losses"] == b["train_losses"] and all(
+                a["scored"][t]["mAP@0.5"] == b["scored"][t]["mAP@0.5"] for t in a["scored"])
+            print(name, "repeats", first, "bit for bit" if same else "NOT bit for bit",
+                  "(training losses and mAP@0.5)")
     return 0 if all(v == 0 for v in rcs.values()) else 1
 
 
