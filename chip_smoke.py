@@ -209,6 +209,25 @@ Phases (any failure exits non-zero and prints no result line):
    phase's checks are all made, and any failure fails it. It runs after
    phase 5's times: the rank processes it starts on the card would make
    the profiler of this process drop kernel records from later traces.
+4j. the whole-epoch program (``make_gathered_train_epoch``: one gathered
+   train step captured into a CUDA graph and replayed a batch), run right
+   after 4c, before any rank process shares the card, with the launch
+   counts set to 0 just before it and read just after (K1-K3 never launch
+   in it). At phase 4b's geometry (64^3 bf16, full width, flips and rot90)
+   on a device cache of 64 seeded volumes, 20 rows an epoch at batch 8 and
+   64, from the TrainState of seed 0 and the generator seeded 0: the
+   graphed epoch against the stepped loop under deterministic cuDNN, bit
+   for bit (every step's metrics, params, optimizer state, BN statistics,
+   step, streak), each path's peak memory and the capture's seconds; then,
+   under cuDNN's default algorithms (captured anew), ms a step by CUDA
+   events in turns (stepped, graphed, graphed, stepped), median and range
+   of 3 rounds; and a torch.profiler trace of one stepped step and of a
+   2-row graphed epoch: device busy ms a step, idle share, kernels a step
+   (the three longest, summed over their launches) and the host's launch
+   and copy calls a step. Then ``cli.train`` on the recipe (4c's 24
+   steps) with ``epoch_scan`` off and on under deterministic cuDNN: epochs
+   1, 3 and 5 scanned, the training losses bit-equal, the trainer's wall
+   ms per step by epoch for both.
 5. times on the card: K1 (at K = 1000, and at K = 3942 for N = 8 and 32;
    on the full-volume path: a chunk's per-patch NMS at N = 32, K = 500 and
    the stitch at V = 1 and 4, K = 1000, and at top_k 395, K = 3950),
@@ -251,7 +270,9 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 from torch.func import functional_call
+from torch.profiler import ProfilerActivity, profile
 
 from mslesions3d_tpu_torch.cli import import_torch as import_cli
 from mslesions3d_tpu_torch.cli import model_insight as insight_cli
@@ -319,16 +340,20 @@ from mslesions3d_tpu_torch.serving import (
     save_bundle,
 )
 from mslesions3d_tpu_torch.train import (
+    Trainer,
     create_train_state,
     eval_view,
     load_checkpoint,
     make_eval_step,
     make_gathered_eval_step,
+    make_gathered_train_epoch,
     make_gathered_train_step,
     make_predict_step,
     make_sharded_gathered_train_step,
     make_train_step,
 )
+from mslesions3d_tpu_torch.parallel.mesh import tree_tensors
+from mslesions3d_tpu_torch.train.graphs import EPOCH_METRICS
 from mslesions3d_tpu_torch.train.state import BIAS_MULT, is_bias
 from mslesions3d_tpu_torch.train.steps import _cast
 from mslesions3d_tpu_torch.utils import profiling
@@ -366,6 +391,17 @@ TRAIN_BOXES = ((0.2, 0.2, 0.2, 0.5, 0.5, 0.5), (0.6, 0.6, 0.6, 0.8, 0.8, 0.8))
 # width, float32; scored as the recipe scores
 RECIPE_DATA = {**recipe.DATA, "num_images": 40}
 RECIPE_STEPS = 24
+# phase 4j: the whole-epoch program (a CUDA graph of the gathered step) at
+# phase 4b's geometry on a device cache of 64 of its volumes, 20 rows an
+# epoch at batch 8 and 64, against the stepped loop. Profiled: one stepped
+# step (its trace of ~10^4 launches is slow to read) and a 2-row graphed
+# epoch (the state's copy in and clone out are an epoch's, not a step's)
+EPOCH_ROWS = 20
+EPOCH_BATCHES = (8, 64)
+EPOCH_PROFILE_ROWS = {"stepped": 1, "graphed": 2}
+# the host's calls that put work on the card's queue, by CUDA API name prefix
+ENQUEUE_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
 TUNE_LR_STEPS = 20
 # BASELINE config #3 (bench.py:204-233): the headline model over whole
 # 192x224x192 volumes in 96^3 patches; patch training from disk on 96^3
@@ -1065,9 +1101,12 @@ def drive_training_entry(card, counters, tmp: Path) -> dict:
     check(launches[1] == launches[2] == 0, "K2 or K3 launched in training")
     per_step = [e["train_s"] / e["steps"] * 1e3 for e in epochs]
     val_s = [e["val_s"] for e in epochs]
+    scanned = [e["epoch"] for e in epochs if e["scanned"]]
     log(f"trainer wall ms per step by epoch {[round(v, 3) for v in per_step]} (epochs 0, "
-        f"2, 4 take the instrumented step with detections), validation s by epoch "
+        f"2, 4 take the instrumented step with detections; epochs {scanned} ran as the "
+        f"whole-epoch program, a CUDA graph captured in the first), validation s by epoch "
         f"{[round(v, 3) for v in val_s]} [{card}]")
+    check(scanned == [1, 3, 5], f"cli.train ran epochs {scanned} as the whole-epoch program")
 
     # one validation batch from the last checkpoint: its detections (K1)
     # against the plain NMS on the same locs and scores
@@ -1130,6 +1169,191 @@ def drive_training_entry(card, counters, tmp: Path) -> dict:
             "fit_s": fit_s, "per_step_ms": per_step, "val_s": val_s, "peak": peak,
             "bare_step_ms": float(np.median(bare)), "bare_rounds": bare, "root": root,
             "last": ckpt_dir / "last"}
+
+
+# ---------------------------------------------------------------- the epoch program
+def profile_epoch(fn, steps: int) -> dict:
+    """torch.profiler trace of one call of fn() (an epoch of ``steps`` steps,
+    its kernels warm): the device's busy ms a step (the union of its kernel
+    and copy intervals), its idle share over the span from the first one's
+    start to the last one's end, the kernels a step, the three that take
+    the most device time, and the host's calls that enqueue work
+    (``ENQUEUE_CALLS``) a step. CUDA activity alone: the
+    runtime's calls are in it, and a stepped step's thousands of operator
+    records would take the trace longer to read than the steps to run."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_ms, span_ms = profiling.device_busy_ms(prof)
+    rows = prof.key_averages()
+    enqueue = {}
+    for e in rows:
+        if e.device_type == DeviceType.CPU and e.key.startswith(ENQUEUE_CALLS):
+            enqueue[e.key] = enqueue.get(e.key, 0) + e.count
+    check(enqueue, "the trace holds no launch call of the host")
+    device = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    return {"busy_ms": busy_ms / steps, "idle_share": 1 - busy_ms / span_ms,
+            "kernels": sum(e.count for e in device) / steps,
+            "top": {profiling.kernel_name(e.key)[:48]:
+                    round(e.self_device_time_total / 1e3 / steps, 3) for e in device[:3]},
+            "host_launches": sum(enqueue.values()) / steps,
+            "by_call": {k: v / steps for k, v in sorted(enqueue.items())}}
+
+
+@contextmanager
+def stepped_epochs():
+    """``Trainer.fit`` with ``epoch_scan`` off (``cli.train`` has no flag for it)."""
+    fit = Trainer.fit
+
+    def fit_stepped(self, *args, **kwargs):
+        self.cfg = dataclasses.replace(self.cfg, epoch_scan=False)
+        return fit(self, *args, **kwargs)
+
+    Trainer.fit = fit_stepped
+    try:
+        yield
+    finally:
+        Trainer.fit = fit
+
+
+def drive_epoch_program(card, counters, entry: dict, tmp: Path) -> dict:
+    """Phase 4j: the whole-epoch program against the stepped loop at phase
+    4b's geometry, and the recipe's trainer with ``epoch_scan`` on and off."""
+    t_phase = time.perf_counter()
+    config = SSD3DConfig.create(**TRAIN)
+    model, priors = SSD3D(config), torch.from_numpy(model_priors(config)).cuda()
+    augment = AugmentConfig(**TRAIN_AUGMENT)
+    n_data = max(EPOCH_BATCHES)
+    data = train_batch(n_data, torch.Generator(device="cuda").manual_seed(2))
+    state0 = create_train_state(config, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    log(f"epoch program: phase 4b's step (64^3 bf16, flips and rot90) over a device cache of "
+        f"{n_data} volumes, {EPOCH_ROWS} rows an epoch, from the TrainState of seed 0 and the "
+        "generator seeded 0 for every epoch")
+    for c in counters:
+        c.launches = 0
+    out = {}
+    for b in EPOCH_BATCHES:
+        rng = np.random.default_rng(b)
+        idx = torch.from_numpy(np.stack([rng.permutation(n_data)[:b]
+                                         for _ in range(EPOCH_ROWS)])).cuda()
+        epoch = make_gathered_train_epoch(config, model, priors, augment)
+        step = make_gathered_train_step(config, model, priors, augment)
+
+        def stepped(rows=idx):
+            state, ms = state0, []
+            for row in rows:
+                state, m = step(state, data, row, gen)
+                ms.append(m)
+            return state, {k: torch.stack([m[k] for m in ms]) for k in EPOCH_METRICS}
+
+        def graphed(rows=idx):
+            return epoch(state0, data, rows, gen)
+
+        paths = {"stepped": stepped, "graphed": graphed}
+        t_part = time.perf_counter()
+        # (a) equality under deterministic cuDNN; each path's peak memory
+        # (the graphed epoch's takes in its capture, warm-up included)
+        torch.backends.cudnn.deterministic = True
+        runs, peak = {}, {}
+        for name, fn in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gen.manual_seed(0)
+            runs[name] = fn()
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated()
+        torch.backends.cudnn.deterministic = False
+        (s_state, s_m), (g_state, g_m) = runs["stepped"], runs["graphed"]
+        metrics_equal = all(torch.equal(s_m[k], g_m[k]) for k in EPOCH_METRICS)
+        state_equal = all(torch.equal(x, y)
+                          for x, y in zip(tree_tensors(s_state), tree_tensors(g_state)))
+        capture_det = epoch.graphed.capture_s
+        log(f"batch {b}: graphed epoch == stepped loop under deterministic cuDNN: metrics "
+            f"{metrics_equal}, state {state_equal} (params, optimizer state, BN statistics, "
+            f"step, streak); losses {[round(float(v), 4) for v in g_m['total_loss'][:5]]}...; "
+            f"capture {capture_det:.3f} s (2 warm-up steps included); peak memory allocated "
+            f"stepped {peak['stepped'] / 2**30:.3f} GiB, graphed {peak['graphed'] / 2**30:.3f} "
+            f"GiB [{card}]")
+        check(metrics_equal and state_equal,
+              f"batch {b}: the graphed epoch differs from the stepped loop")
+        check(bool(torch.isfinite(g_m["total_loss"]).all()), f"batch {b}: a non-finite loss")
+        log(f"(equality pass {time.perf_counter() - t_part:.1f} s)")
+        t_part = time.perf_counter()
+
+        # (b) ms a step under cuDNN's default algorithms (a capture anew, on a
+        # one-row epoch: the key holds cuDNN's flags), in turns, 3 rounds
+        graphed(idx[:1])
+        capture_default = epoch.graphed.capture_s
+        check(epoch.graphed.captures == 2, f"batch {b}: {epoch.graphed.captures} captures, not 2")
+        rounds = {"stepped": [], "graphed": []}
+        for _ in range(3):
+            one = {"stepped": [], "graphed": []}
+            for name in ("stepped", "graphed", "graphed", "stepped"):
+                gen.manual_seed(0)
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                paths[name]()
+                end.record()
+                torch.cuda.synchronize()
+                one[name].append(start.elapsed_time(end) / EPOCH_ROWS)
+            for name in rounds:
+                rounds[name].append(float(np.mean(one[name])))
+        log(f"(timed rounds {time.perf_counter() - t_part:.1f} s)")
+        t_part = time.perf_counter()
+        # (c) a profile of an epoch of EPOCH_PROFILE_ROWS rows on each path
+        prof = {name: profile_epoch(partial(fn, idx[:EPOCH_PROFILE_ROWS[name]]),
+                                    EPOCH_PROFILE_ROWS[name]) for name, fn in paths.items()}
+        check(epoch.graphed.captures == 2, "a shorter epoch captured again")
+        log(f"(profiles {time.perf_counter() - t_part:.1f} s)")
+        for name in paths:
+            p = prof[name]
+            log(f"batch {b} {name}: median {float(np.median(rounds[name])):.3f} ms a step, "
+                f"rounds {[round(v, 3) for v in rounds[name]]} (CUDA events over {EPOCH_ROWS} "
+                f"steps, in turns stepped, graphed, graphed, stepped); profile of "
+                f"{EPOCH_PROFILE_ROWS[name]} step(s): device busy {p['busy_ms']:.3f} ms a step, "
+                f"idle share {p['idle_share']:.3f}, {p['kernels']:.1f} kernels and copies a step "
+                f"(top ms a step {p['top']}), {p['host_launches']:.1f} host launches a step "
+                f"{p['by_call']} [{card}]")
+        out[b] = {"equal": metrics_equal and state_equal, "capture_s": capture_det,
+                  "capture_default_s": capture_default, "peak": peak, "rounds": rounds,
+                  "profile": prof}
+        del epoch, runs, s_state, g_state
+        torch.cuda.empty_cache()
+    launches = [c.launches for c in counters]
+    check(launches == [0] * len(counters), f"a train step launched a kernel: {launches}")
+
+    # (d) the recipe's trainer (phase 4c's 24 steps) with epoch_scan off and
+    # on, under deterministic cuDNN: the scanned epochs are 1, 3 and 5
+    args = ["-d", str(entry["root"]), *recipe.TRAIN_FLAGS, "-mi", str(RECIPE_STEPS), "-ld",
+            str(tmp / "epoch_logs"), "--device", "cuda"]
+    fits = {}
+    torch.backends.cudnn.deterministic = True
+    for name in ("epoch_scan off", "epoch_scan on"):
+        with stepped_epochs() if name.endswith("off") else ExitStack():
+            t0 = time.perf_counter()
+            result = train_cli.main([*args, "-en", name.replace(" ", "_")])
+        epochs = result["timings"]["epochs"]
+        fits[name] = {"fit_s": time.perf_counter() - t0,
+                      "scanned": [e["epoch"] for e in epochs if e["scanned"]],
+                      "losses": [v for e in epochs for v in e["train_losses"]],
+                      "ms_per_step": [e["train_s"] / e["steps"] * 1e3 for e in epochs]}
+    torch.backends.cudnn.deterministic = False
+    off, on = fits["epoch_scan off"], fits["epoch_scan on"]
+    for name, f in fits.items():
+        log(f"cli.train (the recipe, {RECIPE_STEPS} steps, cuDNN deterministic) with {name}: "
+            f"scanned epochs {f['scanned']}; trainer wall ms per step by epoch "
+            f"{[round(v, 3) for v in f['ms_per_step']]}; cli.train {f['fit_s']:.3f} s [{card}]")
+    same = on["losses"] == off["losses"]
+    log(f"the two runs' training losses {'bit-equal' if same else 'differ'}")
+    check(off["scanned"] == [] and on["scanned"] == [1, 3, 5],
+          f"scanned epochs {on['scanned']} with epoch_scan on, {off['scanned']} off")
+    check(same, "the trainer's losses differ with epoch_scan on and off")
+    log(f"epoch program phase {time.perf_counter() - t_phase:.1f} s")
+    return {"batches": out, "trainer": fits}
 
 
 def read_predictions(run_dir: Path, subject) -> tuple:
@@ -3677,6 +3901,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 4c. the training entry point
         entry = drive_training_entry(card, counters, Path(tmp))
+        # 4j. the whole-epoch program (a CUDA graph) against the stepped loop;
+        # before any rank process shares the card, so its profiles keep
+        # every kernel record
+        drive_epoch_program(card, counters, entry, Path(tmp))
         # 4d. the predict and eval entry points, the import and the tools
         scoring = drive_scoring(card, counters, Path(tmp), entry["root"], entry["last"])
         # 4e. full-resolution volumes

@@ -23,6 +23,7 @@ whatever was drawn.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -151,6 +152,23 @@ def _interp(x, xp, fp):
     return torch.where(x > xp[..., -1:], fp[..., -1:], f)
 
 
+def device_constant(values: tuple, dtype: torch.dtype, like: torch.Tensor) -> torch.Tensor:
+    """``values`` as a tensor on ``like``'s device, copied there once: a copy
+    from host memory each step would wait for the card's queue, and a CUDA
+    graph cannot capture one. Callers read it and never write it. Where
+    ``like`` is a tensor subclass (the fake tensors of ``torch.export``'s
+    trace) it is made afresh, so that the trace records it and no tensor of
+    a trace is kept."""
+    if type(like) is not torch.Tensor:
+        return torch.tensor(values, dtype=dtype, device=like.device)
+    return _cached_constant(tuple(values), dtype, like.device)
+
+
+@functools.cache
+def _cached_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _bernoulli(generator, b, p, device):
     return torch.rand((b,), generator=generator, device=device) < p
 
@@ -213,7 +231,7 @@ def apply_augment(images, boxes, params: dict, config: AugmentConfig):
     dev = images.device
     params = {k: v.to(dev) for k, v in params.items()}
     spatial = images.shape[1:4]
-    shape = torch.tensor(spatial, dtype=torch.float32, device=dev)
+    shape = device_constant(spatial, torch.float32, images)
 
     planes = [(a, b) for a, b in config.rot90_planes if spatial[a] == spatial[b]]
     for j, (a, b) in enumerate(planes):

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from .augment import device_constant
+
 
 def draw_patch_params(generator: torch.Generator, batch: int) -> dict:
     """Every sample's draws, uniform in [0, 1) on the generator's device:
@@ -47,9 +49,8 @@ def patch_starts_from_draws(draws: dict, vol_shape, patch, boxes, box_mask,
     axis with lo = clip(centre - patch + 1) and hi = clip(centre), so the
     patch holds the centre; both clips are to [0, volume - patch].
     """
-    dev = boxes.device
-    vol = torch.tensor(vol_shape, dtype=torch.float32, device=dev)
-    pat = torch.tensor(patch, dtype=torch.float32, device=dev)
+    vol = device_constant(vol_shape, torch.float32, boxes)
+    pat = device_constant(patch, torch.float32, boxes)
     max_start = vol - pat
     probs = box_mask.float()
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1.0)
@@ -83,9 +84,8 @@ def sample_patch_starts(generator: torch.Generator, vol_shape, patch, boxes, box
 def deterministic_patch_starts(vol_shape, patch, boxes, box_mask) -> torch.Tensor:
     """Starts (B, 3) of a patch centred on the mean of the real box centres
     (the volume's centre when a sample has none): validation's crop."""
-    dev = boxes.device
-    vol = torch.tensor(vol_shape, dtype=torch.float32, device=dev)
-    pat = torch.tensor(patch, dtype=torch.float32, device=dev)
+    vol = device_constant(vol_shape, torch.float32, boxes)
+    pat = device_constant(patch, torch.float32, boxes)
     centers = (boxes[..., :3] + boxes[..., 3:]) * 0.5
     w = box_mask.float()
     n = torch.clamp(w.sum(1, keepdim=True), min=1.0)
@@ -103,7 +103,8 @@ def crop_patches(volumes: torch.Tensor, starts: torch.Tensor, patch,
     dev = volumes.device
     if rows is None:
         rows = torch.arange(starts.shape[0], device=dev)
-    limit = torch.tensor([s - p for s, p in zip(volumes.shape[1:4], patch)], device=dev)
+    limit = device_constant([s - p for s, p in zip(volumes.shape[1:4], patch)], torch.int64,
+                            volumes)
     starts = torch.minimum(torch.clamp(starts.to(dev).long(), min=0), limit)
     axes = [starts[:, a, None] + torch.arange(p, device=dev) for a, p in enumerate(patch)]
     return volumes[rows.to(dev)[:, None, None, None], axes[0][:, :, None, None],
@@ -118,8 +119,8 @@ def boxes_to_patch(boxes, box_mask, starts, vol_shape, patch):
     leaves it degenerate. Masked slots are zeroed.
     """
     dev = boxes.device
-    vol = torch.tensor(vol_shape, dtype=torch.float32, device=dev)
-    pat = torch.tensor(patch, dtype=torch.float32, device=dev)
+    vol = device_constant(vol_shape, torch.float32, boxes)
+    pat = device_constant(patch, torch.float32, boxes)
     off = starts.to(dev).float()[:, None, :]
     lo = (boxes[..., :3] * vol - off) / pat
     hi = (boxes[..., 3:] * vol - off) / pat

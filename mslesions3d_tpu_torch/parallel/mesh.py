@@ -346,24 +346,27 @@ def shard_batch(batch: dict, mesh, grad_accum: int = 1) -> dict:
             for k, v in batch.items()}
 
 
-def _tensors(obj, out: list):
+def tree_tensors(obj) -> list:
+    """Every tensor of ``obj`` (a tensor, or dicts and dataclasses of them,
+    nested: a ``TrainState``), in a fixed order."""
     if isinstance(obj, torch.Tensor):
-        out.append(obj)
-    elif isinstance(obj, dict):
-        for v in obj.values():
-            _tensors(v, out)
-    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        for f in dataclasses.fields(obj):
-            _tensors(getattr(obj, f.name), out)
+        return [obj]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in tree_tensors(v)]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj) for t in tree_tensors(getattr(obj, f.name))]
+    return []
 
 
-def _rebuild(obj, values):
+def tree_rebuild(obj, values):
+    """``obj`` with its tensors replaced, in :func:`tree_tensors`' order, by
+    the next ones of the iterator ``values``."""
     if isinstance(obj, torch.Tensor):
         return next(values)
     if isinstance(obj, dict):
-        return {k: _rebuild(v, values) for k, v in obj.items()}
+        return {k: tree_rebuild(v, values) for k, v in obj.items()}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{f.name: _rebuild(getattr(obj, f.name), values)
+        return dataclasses.replace(obj, **{f.name: tree_rebuild(getattr(obj, f.name), values)
                                            for f in dataclasses.fields(obj)})
     return obj
 
@@ -371,6 +374,4 @@ def _rebuild(obj, values):
 def replicate(state, mesh):
     """``state`` (a ``TrainState``, or any dataclass or dict of tensors) with
     rank 0's values in every tensor, on every rank."""
-    leaves: list = []
-    _tensors(state, leaves)
-    return _rebuild(state, iter(broadcast(leaves, mesh)))
+    return tree_rebuild(state, iter(broadcast(tree_tensors(state), mesh)))

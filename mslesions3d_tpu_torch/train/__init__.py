@@ -17,6 +17,7 @@ from .state import (
 from .steps import (
     make_eval_step,
     make_gathered_eval_step,
+    make_gathered_train_epoch,
     make_gathered_train_step,
     make_predict_step,
     make_sharded_gathered_train_step,
@@ -26,8 +27,8 @@ from .steps import (
 __all__ = [
     "AdamL2", "TrainState", "cosine_annealing_schedule", "create_train_state", "eval_view",
     "make_optimizer", "resolve_device", "use_ieee_float32", "make_eval_step",
-    "make_gathered_eval_step", "make_gathered_train_step", "make_predict_step",
-    "make_sharded_gathered_train_step", "make_train_step",
+    "make_gathered_eval_step", "make_gathered_train_epoch", "make_gathered_train_step",
+    "make_predict_step", "make_sharded_gathered_train_step", "make_train_step",
     "CheckpointManager", "load_checkpoint", "save_checkpoint", "MetricsLogger", "Trainer",
     "TrainerConfig",
 ]

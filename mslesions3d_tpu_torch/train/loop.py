@@ -29,6 +29,14 @@ reads them on the logging cadence and once at the end of an epoch, so the
 steps queue ahead of the card. The non-finite-loss streak is carried on the
 device in the TrainState and checked on the same cadence.
 
+With ``epoch_scan`` (the default) an epoch that logs no train metrics, on a
+device-resident cache without a mesh, runs as one whole-epoch program
+(``steps.make_gathered_train_epoch``), as the JAX package scans it: on the
+card one captured CUDA graph replayed a batch, on the CPU a plain loop. Its
+metrics come back in one transfer at the end, are logged on the same
+cadence, and no gradient histograms are logged in it (the JAX package's
+scanned epoch logs none). Both give the stepped loop's numbers.
+
 With ``patch_training`` the dataset holds full-resolution volumes: each
 train step crops fresh lesion-biased patches of ``config.input_size`` on
 the device, validation's loss takes a deterministic crop, and on metric
@@ -86,15 +94,20 @@ from ..parallel.collectives import broadcast, gather_rows
 from ..parallel.mesh import make_mesh, make_mesh_2d, replicate, row_runs, shard_batch
 from ..sliding_window import make_sliding_window_detector
 from .checkpoints import CheckpointManager, load_checkpoint
+from .graphs import EPOCH_METRICS
 from .logging import MetricsLogger
 from .state import create_train_state, eval_view, make_optimizer
 from .steps import (
     make_eval_step,
     make_gathered_eval_step,
+    make_gathered_train_epoch,
     make_gathered_train_step,
     make_sharded_gathered_train_step,
     make_train_step,
 )
+
+
+LOSSES = ("total_loss", "conf_loss", "loc_loss")
 
 
 def array_batch(batch: dict) -> dict:
@@ -138,10 +151,10 @@ class TrainerConfig:
     # under one full batch
     device_data_cache: bool = True
     device_cache_max_bytes: int = 4 << 30
-    # The JAX package scans whole non-metric epochs into one device program
-    # to cut the TPU's per-step dispatch cost; it gives the same numbers as
-    # stepping (tests/test_train.py). The port steps every epoch, and keeps
-    # the field so configurations carry across.
+    # run each non-metric epoch on the device cache as one whole-epoch
+    # program (steps.make_gathered_train_epoch: a CUDA graph replayed a
+    # batch on the card), with the stepped loop's numbers and no gradient
+    # histograms in it
     epoch_scan: bool = True
     log_every_n_steps: int = 10
     grad_hist_every_n_steps: int = 25  # TB grad histograms (0 = off)
@@ -246,7 +259,8 @@ class Trainer:
 
         The result has the JAX package's keys (history, best_val_loss,
         checkpoint_dir, best_checkpoint) and the port's ``timings``: the
-        seconds ``materialize`` took and, per epoch, its steps, its train and
+        seconds ``materialize`` took and, per epoch, its steps, whether they
+        ran as the whole-epoch program (``scanned``), its train and
         validation seconds (host clock; the train part ends with a read of
         the state, so it waits for the card) and its training losses.
         """
@@ -369,6 +383,7 @@ class Trainer:
             train_step_instr_g = make_gathered_train_step(config, model, priors, augment,
                                                           **instr_kw)
             eval_step_g = make_gathered_eval_step(config, model, priors, **eval_kw)
+            train_epoch_g = make_gathered_train_epoch(config, model, priors, augment, **kw)
 
         # whole validation volumes under patch training: sliding-window
         # detectors built at first use, by (volume shape, volumes at once)
@@ -412,6 +427,9 @@ class Trainer:
         epoch = start_epoch
         done = False
         history, epoch_times = [], []
+        # the epochs' draws: one generator on the device, seeded seed + epoch
+        # at the start of each (a captured epoch program stays registered to it)
+        generator = torch.Generator(device=device)
 
         def check_streak(streak):
             streak = int(streak)
@@ -420,6 +438,14 @@ class Trainer:
                     f"{streak} consecutive non-finite losses at step {step} "
                     f"— aborting (try a lower learning rate)"
                 )
+
+        def log_step(m: dict):
+            """The logging cadence's check and record of one step's metrics (floats)."""
+            check_streak(m["nonfinite_streak"])
+            logger.log({"total_loss/training": m["total_loss"],
+                        "confidence_loss/training": m["conf_loss"],
+                        "localization_loss/training": m["loc_loss"],
+                        "grad_norm/training": m["grad_norm"]}, step)
 
         try:
             while not done:
@@ -463,8 +489,29 @@ class Trainer:
                     if mesh is not None:
                         host = (shard_batch(b, mesh, grad_accum) for b in host)
                     batches = prefetch_batches(host, prefetch=2, device=device)
-                # the epoch's augmentation draws, from a generator on the device
-                generator = torch.Generator(device=device).manual_seed((cfg.seed or 0) + epoch)
+                generator.manual_seed((cfg.seed or 0) + epoch)
+
+                # the whole-epoch program where the JAX package scans
+                # (its loop.py:444-454): the device cache, no mesh, no train metrics
+                scan = (cfg.epoch_scan and train_data is not None and not sharded_cache
+                        and mesh is None and not compute_train_metrics)
+                if scan and cfg.max_steps > 0:
+                    batches = batches[:max(cfg.max_steps - step, 0)]
+                scanned = bool(scan and batches)
+                if scanned:
+                    n = len(batches)
+                    # the batches are the permutation's consecutive rows
+                    idx_matrix = perm[:n * B].view(n, B)
+                    state, ms = train_epoch_g(state, train_data, idx_matrix, generator)
+                    # one read of the epoch's metrics
+                    rows = torch.stack([ms[k].float() for k in EPOCH_METRICS], 1).tolist()
+                    for row in rows:
+                        step += 1
+                        m = dict(zip(EPOCH_METRICS, row))
+                        train_losses.append({k: m[k] for k in LOSSES})
+                        if step % cfg.log_every_n_steps == 0:
+                            log_step(m)
+                    batches = []  # consumed
 
                 for batch in batches:
                     grad_hist = (
@@ -482,27 +529,14 @@ class Trainer:
                         batch_mask = batch["batch_mask"]
                     step += 1
                     # device tensors only, read in bulk at the end of the epoch
-                    train_losses.append(
-                        {k: m[k] for k in ("total_loss", "conf_loss", "loc_loss")}
-                    )
+                    train_losses.append({k: m[k] for k in LOSSES})
                     if grad_hist:
                         logger.log_histograms(m["grads"], step - 1, prefix="epoch/")
                     if compute_train_metrics:
                         record(m["detections"], m["aug_boxes"], m["aug_labels"],
                                m["aug_box_mask"], batch_mask, "train", accum)
                     if step % cfg.log_every_n_steps == 0:
-                        host_m = {k: float(m[k]) for k in ("total_loss", "conf_loss", "loc_loss",
-                                                           "nonfinite_streak", "grad_norm")}
-                        check_streak(host_m["nonfinite_streak"])
-                        logger.log(
-                            {
-                                "total_loss/training": host_m["total_loss"],
-                                "confidence_loss/training": host_m["conf_loss"],
-                                "localization_loss/training": host_m["loc_loss"],
-                                "grad_norm/training": host_m["grad_norm"],
-                            },
-                            step,
-                        )
+                        log_step({k: float(m[k]) for k in EPOCH_METRICS})
                     if cfg.max_steps > 0 and step >= cfg.max_steps:
                         done = True
                         break
@@ -610,7 +644,8 @@ class Trainer:
                 if compute_val_metrics and accum["val_full"]:
                     self._finalize_detection_metrics(accum, "val_full", config, epoch_logs,
                                                      "validation_full")
-                epoch_times.append({"epoch": epoch, "steps": steps_run, "train_s": train_s,
+                epoch_times.append({"epoch": epoch, "steps": steps_run, "scanned": scanned,
+                                    "train_s": train_s,
                                     "val_s": time.perf_counter() - t_val,
                                     "train_losses": [m["total_loss"] for m in train_losses]})
 

@@ -46,8 +46,11 @@ gradients are summed over the rank's data x spatial group only
 (``mesh.replicas``), and the gradient norm joins the sharded leaves' squares
 over the model group.
 
-The JAX package's whole-epoch scan is a TPU dispatch workaround that gives
-the same numbers as stepping; the port steps.
+The whole-epoch program (:func:`make_gathered_train_epoch`, the JAX
+package's ``lax.scan`` of an epoch's steps) runs the gathered step once a
+batch: on the card as a CUDA graph captured once and replayed
+(``train/graphs.py``), on the CPU as a plain loop. Both give the stepped
+loop's numbers.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ from ..ops.nms import detect_objects
 from ..parallel.collectives import all_reduce_sum, data_parallel, exchange_rows, gather_rows
 from ..parallel.mesh import SpatialMesh, TensorMesh, local_row_runs, rows_split
 from ..parallel.spatial import depth_slab
+from .graphs import GraphedEpoch, split_metrics, stack_metrics
 from .state import TrainState
 
 
@@ -337,6 +341,41 @@ def make_gathered_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         return body(state, batch, generator)
 
     return step
+
+
+def make_gathered_train_epoch(config: SSD3DConfig, model: SSD3D, priors_center,
+                              augment: AugmentConfig | None = None, **kwargs):
+    """Whole-epoch train program: fn(state, data, idx_matrix, generator=None)
+    -> (state, metrics).
+
+    ``idx_matrix`` (n_batches, B) integers, on the state's device, selects
+    every batch of the epoch from ``data`` (as :func:`make_gathered_train_step`);
+    the steps run back to back, drawing from ``generator`` in the stepped
+    loop's order, and ``metrics`` holds total_loss, conf_loss, loc_loss,
+    grad_norm and nonfinite_streak as (n_batches,) tensors on the device, to
+    be read in one transfer. make_train_step's options pass through.
+
+    On the card the step is captured into a CUDA graph at the first call for
+    a key (``train/graphs.py``) and replayed once a row; the capture is kept
+    on ``fn.graphed`` for later calls. On the CPU the steps run in a plain
+    loop. The state returned shares no memory with a later call's.
+    """
+    step = make_gathered_train_step(config, model, priors_center, augment, **kwargs)
+    graphed = GraphedEpoch(step)
+
+    def epoch(state, data, idx_matrix, generator=None):
+        if state.device.type == "cuda":
+            return graphed(state, data, idx_matrix, generator)
+        if state.device.type != "cpu":
+            raise ValueError(f"make_gathered_train_epoch: no epoch program on {state.device}")
+        rows = []
+        for idx in torch.as_tensor(idx_matrix, device=state.device):
+            state, m = step(state, data, idx, generator)
+            rows.append(stack_metrics(m))
+        return state, split_metrics(torch.stack(rows))
+
+    epoch.graphed = graphed
+    return epoch
 
 
 def make_sharded_gathered_train_step(config: SSD3DConfig, model: SSD3D, priors_center, mesh,
