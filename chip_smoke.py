@@ -127,14 +127,21 @@ Phases (any failure exits non-zero and prints no result line):
    bundle call launches K1 once (and K2, K3 once with both flags), and the
    bundle's size, export and load seconds and volumes/s against the live
    Detector (live, bundle, bundle, live) are logged. int8: the model
-   quantized on the card from 2 seeded calibration volumes; Q1 is held
-   against its plain version on every conv of one forward (0 int32
-   mismatches, the epilogue bit for bit), timed by conv kind beside its
-   bound, its plain version, a float64 F.conv3d of the same integers and
-   ``torch._int_mm`` on the pointwise shapes; the int8 bundle (batch 8 and
-   32) equals the live int8 program, launches K1 once and Q1 once a conv,
-   and is set beside the bf16 bundle (relative error of locs and scores,
-   detections matched at IoU > 0.5, volumes/s). The sliding-window bundle
+   quantized on the card from 2 seeded calibration volumes. The fused
+   forward (18 Q1 launches: the stem quantizing the bf16 image as it
+   loads, 7 depthwise, 7 pointwise writing the next convs' int8 codes, 3
+   fused loc + cls heads; no requantize) equals the float32-mode chain
+   (the first version's structure: 21 float32 Q1 launches, torch's
+   requantize before each) at batch 8 and 32, and every launch is held
+   against its plain version (0 mismatches in int32 sums, float32 outputs, int8 codes and
+   head outputs). Each conv kind is timed in turns (fused, chain, chain,
+   fused) beside two bounds (float32 outputs, as the first version wrote
+   them; the fused work's, int8 codes) and the yardsticks the port never calls (float64 F.conv3d
+   of the same integers, ``torch._int_mm`` on the pointwise shapes); the
+   int8 bundle (batch 8 and 32) equals the live int8 program and the
+   chain's detections, launches K1 once and Q1 18 times a call, and is set
+   beside the bf16 bundle (relative error of locs and scores, detections
+   matched at IoU > 0.5, volumes/s, busy ms, idle share, launches). The sliding-window bundle
    at config #3 (V = 1) equals the live sliding window and launches K1
    twice a call. ``cli.serve.make_http_server`` on the default bundle at
    batch 1 and 8 under 8 client threads x 4 POSTs of one volume: every
@@ -297,10 +304,16 @@ from mslesions3d_tpu_torch.kernels.depthwise import (
 from mslesions3d_tpu_torch import kernels, quant
 from mslesions3d_tpu_torch.kernels.nms import greedy_nms, greedy_nms_cuda, plan_nms
 from mslesions3d_tpu_torch.kernels.qconv import (
+    plan_qconv,
+    qconv_codes_cuda,
+    qconv_codes_reference,
     qconv_cuda,
-    qconv_epilogue,
+    qconv_heads_cuda,
+    qconv_heads_reference,
+    qconv_reference,
     qconv_s32,
     qconv_s32_cuda,
+    requantize,
 )
 from mslesions3d_tpu_torch.kernels.tail import fused_tail_cuda, plan_tail, tail_reference
 from mslesions3d_tpu_torch.models.losses import multibox_loss_from_config
@@ -481,8 +494,9 @@ def profile_calls(label, what, fn, card, calls=3, top=12) -> dict:
     return profiling.profile_calls(label, what, fn, card, calls, top, log=log)
 
 
-def hmma_counts(library) -> dict:
-    """Tensor-core (HMMA) instructions per kernel function in a library's SASS."""
+def hmma_counts(library, opcode: str = "HMMA") -> dict:
+    """Tensor-core instructions (``opcode``: HMMA for bf16 / fp16, IMMA for
+    int8) per kernel function in a library's SASS."""
     sass = subprocess.run([str(find_nvcc().with_name("cuobjdump")), "-sass", str(library)],
                           capture_output=True, text=True, timeout=120, check=True).stdout
     counts, function = {}, None
@@ -490,7 +504,7 @@ def hmma_counts(library) -> dict:
         if "Function : " in line:
             function = line.split("Function : ")[1].strip()
             counts[function] = 0
-        elif function is not None and "HMMA" in line:
+        elif function is not None and opcode in line:
             counts[function] += 1
     return counts
 
@@ -1913,29 +1927,49 @@ def volumes_per_s(predict, images, iters: int) -> float:
 
 @contextmanager
 def recorded_qconv():
-    """Records every Q1 launch made through ``quant.py``: its operands and
-    output, to be held against the plain version afterwards."""
+    """Records every Q1 launch made through ``quant.py``, by entry point:
+    (kind of call, operands, output), to be held against the plain versions
+    afterwards: "codes" and "heads" from the fused forward, "float" and the
+    torch requantize before it ("requantize") from the float32-mode chain."""
     calls = []
 
-    def record(q, wq, scale, bias, stride=1, groups=1, relu=False):
-        out = qconv_cuda(q, wq, scale, bias, stride, groups, relu)
-        calls.append((q, wq, scale, bias, stride, groups, relu, out))
+    def codes(x, wq, scale, bias, sx_out, stride=1, groups=1, relu=True, sx_in=None):
+        out = qconv_codes_cuda(x, wq, scale, bias, sx_out, stride, groups, relu, sx_in)
+        calls.append(("codes", (x, wq, scale, bias, sx_out, stride, groups, relu, sx_in), out))
         return out
 
-    saved = quant.qconv_cuda
-    quant.qconv_cuda = record
+    def heads(q, wq, scale, bias, split):
+        out = qconv_heads_cuda(q, wq, scale, bias, split)
+        calls.append(("heads", (q, wq, scale, bias, split), out))
+        return out
+
+    def float32(q, wq, scale, bias, stride=1, groups=1, relu=False):
+        out = qconv_cuda(q, wq, scale, bias, stride, groups, relu)
+        calls.append(("float", (q, wq, scale, bias, stride, groups, relu), out))
+        return out
+
+    def requant(x, sx):
+        out = requantize(x, sx)
+        calls.append(("requantize", (x, sx), out))
+        return out
+
+    saved = {name: getattr(quant, name) for name in
+             ("qconv_codes_cuda", "qconv_heads_cuda", "qconv_cuda", "requantize")}
+    quant.qconv_codes_cuda, quant.qconv_heads_cuda = codes, heads
+    quant.qconv_cuda, quant.requantize = float32, requant
     try:
         yield calls
     finally:
-        quant.qconv_cuda = saved
+        for name, fn in saved.items():
+            setattr(quant, name, fn)
 
 
-def qconv_kind(q, wq, stride, groups) -> str:
+def qconv_kind(shape, wshape, stride, groups) -> str:
     if groups > 1:
         return f"depthwise s{max(stride)}"
-    if wq.shape[0] == 1:
+    if wshape[0] == 1:
         return "pointwise"
-    return "stem" if q.shape[-1] == 1 else "head"
+    return "stem" if shape[-1] == 1 else "head"
 
 
 def valid_taps(n: int, k: int, s: int) -> int:
@@ -1944,18 +1978,97 @@ def valid_taps(n: int, k: int, s: int) -> int:
     return sum(0 <= o * s - k // 2 + t < n for o in range(out) for t in range(k))
 
 
-def qconv_bound(q, wq, stride, groups):
+def qconv_bound(shape, wshape, stride, groups, out_bytes: float, in_bytes: int = 1):
     """(bound ms, bound_by, int8 ops): the int8 multiply-adds this conv's
     shapes need (2 operations each, padded taps not counted) at the int8
-    rate, against its bytes (q and the weights read once, scale and bias,
-    the float32 output written once) at the memory rate."""
-    b, *dims, cin = q.shape
-    k, cout = wq.shape[0], wq.shape[-1]
+    rate, against its bytes (x read once at ``in_bytes`` an element, the
+    weights, scale and bias once, ``out_bytes`` an output element written
+    once) at the memory rate."""
+    b, *dims, cin = shape
+    k, cout = wshape[0], wshape[-1]
     pairs = math.prod(valid_taps(n, k, s) for n, s in zip(dims, stride))
     ops = 2 * b * pairs * (cin // groups) * cout
     outputs = b * math.prod((n + 2 * (k // 2) - k) // s + 1 for n, s in zip(dims, stride)) * cout
-    nbytes = q.numel() + wq.numel() + 8 * cout + 4 * outputs
+    nbytes = math.prod(shape) * in_bytes + math.prod(wshape) + 8 * cout + out_bytes * outputs
     return (*bound({PEAK_INT8_OPS: ops}, nbytes), ops)
+
+
+def fused_q1_calls(calls):
+    """The fused forward's Q1 calls as (kind, replay, bounds): the bound of
+    float32 outputs from int8 input and the fused work's (int8 codes, the
+    image read once in its dtype, float32 head outputs)."""
+    out = []
+    for what, args, _ in calls:
+        if what == "codes":
+            x, wq, scale, bias, sx_out, stride, groups, relu, sx_in = args
+            shape, wshape = tuple(x.shape), tuple(wq.shape)
+            fused = qconv_bound(shape, wshape, stride, groups, sx_out.numel(), x.element_size())
+            f32 = qconv_bound(shape, wshape, stride, groups, 4)
+            out.append((qconv_kind(shape, wshape, stride, groups),
+                        partial(qconv_codes_cuda, *args), fused, f32))
+        elif what == "heads":
+            q, wq = args[:2]
+            shape, wshape = tuple(q.shape), tuple(wq.shape)
+            both = qconv_bound(shape, wshape, (1, 1, 1), 1, 4)
+            out.append(("head", partial(qconv_heads_cuda, *args), both, both))
+    return out
+
+
+def chain_q1_calls(calls):
+    """The float32-mode chain's convs as (kind, replay of the torch requantize
+    and the float32 Q1 call): the float32 chain, a conv at a time."""
+    out, pending = [], None
+    for what, args, _ in calls:
+        if what == "requantize":
+            pending = args
+        elif what == "float":
+            q, wq, _, _, stride, groups, _ = args
+
+            def replay(rq=pending, args=args):
+                qconv_cuda(requantize(*rq), *args[1:])
+
+            out.append((qconv_kind(tuple(q.shape), tuple(wq.shape), stride, groups), replay))
+    return out
+
+
+def held_against_plain(calls) -> dict:
+    """Every recorded Q1 call of a fused forward against its plain version:
+    the int32 sums (the raw mode on the same plan's variant), the float32 y
+    (the float32 mode) and the int8 codes or head outputs the forward wrote."""
+    counts = {"int32": 0, "float32": 0, "codes": 0, "heads": 0, "elements": 0, "max_abs_err": 0.0}
+    for what, args, got in calls:
+        if what == "codes":
+            x, wq, scale, bias, sx_out, stride, groups, relu, sx_in = args
+            q = x if x.dtype == torch.int8 else requantize(x.float(), sx_in)
+            want = qconv_codes_reference(x, wq, scale, bias, sx_out, stride, groups, relu, sx_in)
+            counts["codes"] += int((got != want).sum())
+        else:
+            q, wq, scale, bias, split = args
+            stride, groups, relu = (1, 1, 1), 1, False
+            want = qconv_heads_reference(q, wq, scale, bias, split)
+            counts["heads"] += sum(int((a != b).sum()) for a, b in zip(got, want))
+            counts["max_abs_err"] = max(counts["max_abs_err"], *(
+                float((a - b).abs().max()) for a, b in zip(got, want)))
+        sums = qconv_s32(q, wq, stride, groups)
+        counts["int32"] += int((qconv_s32_cuda(q, wq, stride, groups) != sums).sum())
+        y = qconv_cuda(q, wq, scale, bias, stride, groups, relu)
+        want_y = qconv_reference(q, wq, scale, bias, stride, groups, relu)
+        counts["float32"] += int((y != want_y).sum())
+        counts["max_abs_err"] = max(counts["max_abs_err"], float((y - want_y).abs().max()))
+        counts["elements"] += sums.numel()
+    return counts
+
+
+class ChainForward(torch.nn.Module):
+    """A ``QuantizedSSD3D`` run as the float32-mode chain (the first
+    version's structure)."""
+
+    def __init__(self, qmodel):
+        super().__init__()
+        self.qmodel = qmodel
+
+    def forward(self, images):
+        return quant.quantized_forward_chain(self.qmodel.qmodel(), images)
 
 
 def drive_deployment(card, counters, cal_state, tmp: Path) -> dict:
@@ -2029,69 +2142,125 @@ def drive_deployment(card, counters, cal_state, tmp: Path) -> dict:
     qm = quant.quantize_ssd3d(config, cal_state, calib)
     quantize_s = time.perf_counter() - t0
     qmodel = quant.QuantizedSSD3D(qm).cuda()
-    n_convs = len(qm["layers"]) + 2 * len(qm["feature_layers"])
-    # the bundle's input dtype (the config's, bf16); the int8 forward runs in float32
+    chain = ChainForward(qmodel)
+    n_convs = len(qm["layers"]) + 2 * len(qm["feature_layers"])  # the float32-mode chain
+    n_fused = len(qm["layers"]) + len(qm["feature_layers"])  # a head launch a feature layer
+    q1 = {"launches_forward": {}, "mismatches": {}, "kinds": {}, "requantize_launches": {}}
+    by_batch = {}
+    for b in INT8_BATCHES:
+        # the bundle's input dtype (the config's, bf16), quantized by the stem as it loads
+        xb = torch.from_numpy(rng.standard_normal((b, *config.input_size, 1),
+                                                  dtype=np.float32)).cuda().to(
+            config.compute_dtype) if b != 8 else torch.from_numpy(requests[2]).cuda().to(
+            config.compute_dtype)
+        with torch.inference_mode(), recorded_qconv() as fused_calls:
+            qconv_cuda.launches = 0
+            locs_f, scores_f = qmodel(xb)
+            torch.cuda.synchronize()
+            fused_launches = qconv_cuda.launches
+        with torch.inference_mode(), recorded_qconv() as chain_calls:
+            qconv_cuda.launches = 0
+            locs_c, scores_c = chain(xb)
+            torch.cuda.synchronize()
+            chain_launches = qconv_cuda.launches
+        check(fused_launches == len(fused_calls) == n_fused and chain_launches == n_convs,
+              f"batch {b}: the fused forward launched Q1 {fused_launches} times (want "
+              f"{n_fused}), the chain {chain_launches} (want {n_convs})")
+        check(torch.equal(locs_f, locs_c) and torch.equal(scores_f, scores_c),
+              f"batch {b}: the fused int8 forward's locs / scores != the float32-mode chain's")
+        with torch.inference_mode():
+            held = held_against_plain(fused_calls)
+        q1["launches_forward"][f"batch {b}"] = {"fused": fused_launches, "chain": chain_launches}
+        q1["mismatches"][f"batch {b}"] = held
+        by_batch[b] = (fused_calls, chain_calls, locs_f, scores_f)
+        log(f"int8 forward at batch {b}: {fused_launches} Q1 launches fused ("
+            + ", ".join(sorted({f"{p.variant}{'/' + p.tile if p.tile else ''}" for p in (
+                plan_qconv(tuple(c[1][0].shape), tuple(c[1][1].shape),
+                           c[1][5] if c[0] == "codes" else (1, 1, 1),
+                           c[1][6] if c[0] == "codes" else 1, c[1][0].dtype)
+                for c in fused_calls)}))
+            + f"), {chain_launches} in the float32-mode chain; locs and scores equal the "
+            f"chain's; against the plain versions on every conv: {held['int32']} int32, "
+            f"{held['float32']} float32, {held['codes']} code and {held['heads']} head-output "
+            f"mismatches over {held['elements']} outputs")
+        check(held["int32"] == held["float32"] == held["codes"] == held["heads"] == 0,
+              f"batch {b}: Q1 disagrees with its plain version: {held}")
+    q1["max_abs_err"] = max(h["max_abs_err"] for h in q1["mismatches"].values())
+    locs_q, scores_q = by_batch[8][2:]
     x8 = torch.from_numpy(requests[2]).cuda().to(config.compute_dtype)
-    with torch.inference_mode(), recorded_qconv() as calls:
-        qconv_cuda.launches = 0
-        locs_q, scores_q = qmodel(x8)
-        torch.cuda.synchronize()
-        q1_forward = qconv_cuda.launches
-    check(q1_forward == len(calls) == n_convs,
-          f"the int8 forward launched Q1 {q1_forward} times for {n_convs} convs")
-    int_mismatches = epilogue_mismatches = 0
-    max_err = 0.0
-    by_kind = {}
-    with torch.inference_mode():
-        for q, wq, scale, bias, stride, groups, relu, y in calls:
-            acc = qconv_s32_cuda(q, wq, stride, groups)
-            plain = qconv_s32(q, wq, stride, groups)
-            int_mismatches += int((acc != plain).sum())
-            ref = qconv_epilogue(plain, scale, bias, relu)
-            epilogue_mismatches += int((y != ref).sum())
-            max_err = max(max_err, float((y - ref).abs().max()))
-            by_kind.setdefault(qconv_kind(q, wq, stride, groups), []).append(
-                (q, wq, scale, bias, stride, groups, relu))
-    log(f"int8 forward at batch 8 (quantized in {quantize_s:.1f} s): {q1_forward} Q1 launches "
-        f"({', '.join(f'{k} {len(v)}' for k, v in by_kind.items())}); against the plain "
-        f"version on every conv: {int_mismatches} int32 mismatches, {epilogue_mismatches} "
-        "epilogue mismatches (bit for bit)")
-    check(int_mismatches == 0 and epilogue_mismatches == 0, "Q1 disagrees with its plain version")
-    q1 = {"launches_forward": q1_forward, "int_mismatches": int_mismatches,
-          "epilogue_mismatches": epilogue_mismatches, "max_abs_err": max_err, "kinds": {}}
-    with torch.inference_mode():
-        for kind, convs in by_kind.items():
-            def replay(convs=convs):
-                for c in convs:
-                    qconv_cuda(*c)
+    # requantize launches of a forward: the kernels of one traced forward
+    # that are neither Q1 nor the final concatenations
+    for name, fn in (("fused", partial(qmodel, x8)), ("chain", partial(chain, x8))):
+        with torch.inference_mode():
+            _, split = device_ms(fn, iters=2)
+        q1["requantize_launches"][name] = {k: v for k, v in split.items() if "qconv" not in k}
+    log("kernels other than Q1 in a forward (device ms over 2 calls): " + json.dumps(
+        q1["requantize_launches"]))
 
-            def plain(convs=convs):
-                for q, wq, scale, bias, stride, groups, relu in convs:
-                    qconv_epilogue(qconv_s32(q, wq, stride, groups), scale, bias, relu)
+    # 3. each kind at batch 8, in turns: the fused Q1 beside the float32-mode
+    # Q1 plus torch's requantize (the float32 chain); yardsticks the port
+    # never calls: float64 F.conv3d of the same integers, torch._int_mm on
+    # the pointwise convs' integers
+    fused_calls, chain_calls = by_batch[8][:2]
+    fused_by_kind, chain_by_kind = {}, {}
+    for kind, replay, fused_b, f32_b in fused_q1_calls(fused_calls):
+        fused_by_kind.setdefault(kind, []).append((replay, fused_b, f32_b))
+    for kind, replay in chain_q1_calls(chain_calls):
+        chain_by_kind.setdefault(kind, []).append(replay)
+    with torch.inference_mode():
+        for kind, entries in fused_by_kind.items():
+            def fused(entries=entries):
+                for replay, _, _ in entries:
+                    replay()
+
+            def chain_fn(replays=chain_by_kind[kind]):
+                for replay in replays:
+                    replay()
+
+            ints = []
+            for what, args, _ in fused_calls:
+                x, wq = args[0], args[1]
+                stride, groups = (args[5], args[6]) if what == "codes" else ((1, 1, 1), 1)
+                if qconv_kind(tuple(x.shape), tuple(wq.shape), stride, groups) == kind:
+                    q = x if x.dtype == torch.int8 else requantize(x.float(), args[8])
+                    ints.append((q, wq, args[2], args[3], stride, groups))
+
+            def plain(ints=ints):
+                for q, wq, scale, bias, stride, groups in ints:
+                    qconv_reference(q, wq, scale, bias, stride, groups)
 
             doubles = [(q.permute(0, 4, 1, 2, 3).double(), wq.permute(4, 3, 0, 1, 2).double(),
-                        stride, wq.shape[0] // 2, groups) for q, wq, _, _, stride, groups, _
-                       in convs]
+                        stride, wq.shape[0] // 2, groups) for q, wq, _, _, stride, groups in ints]
 
             def conv64(doubles=doubles):
                 for x, w, stride, pad, groups in doubles:
                     F.conv3d(x, w, stride=stride, padding=pad, groups=groups)
 
-            # 20 calls: a trace of Q1 alone holds few kernel records (1 a call
-            # at the stem), and the profiler can lose some of them
-            _, split = device_ms(replay, iters=20)
-            kernel_ms = sum(ms for fn, ms in split.items() if "qconv" in fn)
-            check(kernel_ms > 0, f"the profiler saw no Q1 kernel [{kind}]: {split}")
-            bounds = [qconv_bound(c[0], c[1], c[4], c[5]) for c in convs]
-            bound_ms = sum(b[0] for b in bounds)
-            entry = {"convs": len(convs), "ms": kernel_ms, "call_ms": cuda_ms(replay, iters=10),
-                     "plain_ms": cuda_ms(plain, iters=2, warmup=1),
-                     "float64_conv3d_ms": cuda_ms(conv64, iters=2, warmup=1),
-                     "bound_ms": bound_ms, "bound_by": max(bounds)[1],
-                     "int8_ops": sum(b[2] for b in bounds)}
-            if kind == "pointwise":  # cuBLASLt's s8 GEMM on the same integers: a yardstick
-                mats = [(c[0].reshape(-1, c[0].shape[-1]), c[1].reshape(c[1].shape[3], -1))
-                        for c in convs]
+            turns = {"fused": [], "chain": []}
+            for who, fn in (("fused", fused), ("chain", chain_fn), ("chain", chain_fn),
+                            ("fused", fused)):
+                ms, split = device_ms(fn, iters=10)
+                q1_ms = sum(v for k, v in split.items() if "qconv" in k)
+                check(q1_ms > 0, f"the profiler saw no Q1 kernel [{kind}, {who}]: {split}")
+                turns[who].append({"device_ms": ms, "q1_ms": q1_ms,
+                                   "call_ms": cuda_ms(fn, iters=10)})
+            fused_bound = sum(e[1][0] for e in entries)
+            float32_bound = sum(e[2][0] for e in entries)
+            entry = {
+                "convs": len(entries),
+                "ms": min(t["q1_ms"] for t in turns["fused"]),
+                "call_ms": min(t["call_ms"] for t in turns["fused"]),
+                "chain_ms": min(t["device_ms"] for t in turns["chain"]),
+                "chain_q1_ms": min(t["q1_ms"] for t in turns["chain"]),
+                "turns": turns,
+                "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+                "float64_conv3d_ms": cuda_ms(conv64, iters=2, warmup=1),
+                "bound_ms": fused_bound, "bound_by": max(e[1] for e in entries)[1],
+                "bound_ms_float32": float32_bound,
+                "int8_ops": sum(e[1][2] for e in entries)}
+            if kind == "pointwise":
+                mats = [(q.reshape(-1, q.shape[-1]), wq.reshape(wq.shape[3], -1))
+                        for q, wq, *_ in ints]
                 check(all(a.shape[0] > 16 and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0
                           for a, b in mats), "a pointwise shape _int_mm does not take")
 
@@ -2101,18 +2270,26 @@ def drive_deployment(card, counters, cal_state, tmp: Path) -> dict:
 
                 entry["int_mm_ms"] = device_ms(int_mm, iters=5)[0]
             q1["kinds"][kind] = entry
-            log(f"Q1 [{kind}] at batch 8, {len(convs)} conv(s) a forward: {kernel_ms:.4f} ms "
-                f"device time ({entry['call_ms']:.4f} ms per forward's calls), plain "
-                f"{entry['plain_ms']:.3f} ms, float64 F.conv3d of the same integers "
-                f"{entry['float64_conv3d_ms']:.3f} ms"
+            fused_turns = ", ".join(f"{t['q1_ms']:.4f}" for t in turns["fused"])
+            log(f"Q1 [{kind}] at batch 8, {len(entries)} launch(es) a forward: fused "
+                f"{entry['ms']:.4f} ms device time (turns {fused_turns}; "
+                f"{entry['call_ms']:.4f} ms per forward's calls), the float32 chain (float32 Q1 + "
+                f"torch requantize) {entry['chain_ms']:.4f} ms (its Q1 "
+                f"{entry['chain_q1_ms']:.4f}), plain {entry['plain_ms']:.3f} ms, float64 "
+                f"F.conv3d {entry['float64_conv3d_ms']:.3f} ms"
                 + (f", torch._int_mm {entry['int_mm_ms']:.4f} ms" if "int_mm_ms" in entry else "")
-                + f", bound {bound_ms:.5f} ms ({entry['int8_ops']:.3e} int8 ops) [{card}]")
-    for field in ("ms", "plain_ms", "bound_ms"):
+                + f"; bound {fused_bound:.5f} ms fused work, {float32_bound:.5f} ms float32 "
+                f"outputs ({entry['int8_ops']:.3e} int8 ops) [{card}]")
+    for field in ("ms", "plain_ms", "bound_ms", "bound_ms_float32", "chain_ms",
+                  "chain_q1_ms"):
         q1[field] = sum(k[field] for k in q1["kinds"].values())
     q1["int_mm_ms_pointwise"] = q1["kinds"]["pointwise"]["int_mm_ms"]
     q1["bound_by"] = max(q1["kinds"].values(), key=lambda k: k["bound_ms"])["bound_by"]
-    log(f"Q1 over one int8 forward at batch 8: {q1['ms']:.4f} ms device time, plain "
-        f"{q1['plain_ms']:.3f} ms, bound {q1['bound_ms']:.5f} ms [{card}]")
+    log(f"Q1 over one int8 forward at batch 8: fused {q1['ms']:.4f} ms device time in "
+        f"{n_fused} launches, the float32 chain {q1['chain_ms']:.4f} ms (Q1 "
+        f"{q1['chain_q1_ms']:.4f}); plain {q1['plain_ms']:.3f} ms; bound "
+        f"{q1['bound_ms']:.5f} ms fused work, {q1['bound_ms_float32']:.5f} ms float32 outputs "
+        f"[{card}]")
     out["q1"] = q1
 
     # the int8 bundle at batch 8 and 32, against the live int8 program
@@ -2121,7 +2298,8 @@ def drive_deployment(card, counters, cal_state, tmp: Path) -> dict:
                                         calib_images=calib)
     int8_export_s = time.perf_counter() - t0
     int8 = ServingDetector(save_bundle(tmp / "int8.mslx", exports, manifest))
-    check(set(manifest["custom_ops"]) == {"msl::greedy_nms", "msl::qconv"},
+    check(set(manifest["custom_ops"]) == {"msl::greedy_nms", "msl::qconv_codes",
+                                          "msl::qconv_heads"},
           f"the int8 bundle calls {manifest['custom_ops']}")
     live_q = DetectionProgram.for_config(qmodel, config).cuda()
     for c in counters:
@@ -2129,13 +2307,18 @@ def drive_deployment(card, counters, cal_state, tmp: Path) -> dict:
     got = int8.detect(x8)
     torch.cuda.synchronize()
     int8_launches = [c.launches for c in counters]
-    check(int8_launches == [1, 0, 0, n_convs],
+    check(int8_launches == [1, 0, 0, n_fused],
           f"the int8 bundle launched (K1, K2, K3, Q1) {int8_launches} in a call")
     out["launches"]["int8"] = int8_launches
     with torch.inference_mode():
         want = live_q(x8)
     for key in want:
         check(torch.equal(got[key], want[key]), f"int8 bundle: {key} != the live int8 program's")
+    with torch.inference_mode():
+        want = DetectionProgram.for_config(chain, config).cuda()(x8)
+    for key in want:
+        check(torch.equal(got[key], want[key]),
+              f"int8 bundle: {key} != the float32-mode chain's")
     with torch.inference_mode():
         locs_b, scores_b = bundles["off"]["live"].model(x8)
     rel = {name: float((a.float() - b.float()).norm() / b.float().norm())
@@ -3685,6 +3868,11 @@ def main() -> int:
     hmma_total = sum(hmma.values())
     check(all(count > 0 for f, count in hmma.items() if "cluster" in f or "mma" in f)
           and hmma_total > 0, "the K3 library's bf16 kernels have no tensor-core instruction")
+    imma = hmma_counts(built["qconv"][0], "IMMA")
+    for function, count in imma.items():
+        log(f"  [qconv] IMMA instructions in {function}: {count}")
+    check(all(count > 0 for f, count in imma.items() if "igemm" in f or "stem" in f)
+          and sum(imma.values()) > 0, "Q1's dense kernels have no tensor-core instruction")
 
     # 3. K1 against its plain version on synthetic cases
     rng = np.random.default_rng(0)
@@ -4236,20 +4424,24 @@ def main() -> int:
         "launches_bundle_path": {name: launches[3]
                                  for name, launches in deploy["launches"].items()},
         "max_abs_err": q1["max_abs_err"],
-        "int32_mismatches": q1["int_mismatches"],
-        "epilogue_mismatches": q1["epilogue_mismatches"],
+        "mismatches": q1["mismatches"],
+        "launches_forward": q1["launches_forward"],
         "ms": q1["ms"],
         "plain_ms": q1["plain_ms"],
         "bound_ms": q1["bound_ms"],
         "bound_by": q1["bound_by"],
+        "bound_ms_float32": q1["bound_ms_float32"],
+        "chain_ms": q1["chain_ms"],
+        "chain_q1_ms": q1["chain_q1_ms"],
         "library_ms": None,
         "library": "none: torch on CUDA has no int8 conv3d; torch._int_mm (cuBLASLt s8 GEMM) "
                    "on the pointwise convs' integers is timed as a yardstick "
                    "(int_mm_ms_pointwise), never used by the port",
         "int_mm_ms_pointwise": q1["int_mm_ms_pointwise"],
+        "imma_in_library": sum(imma.values()),
         "by_kind": q1["kinds"],
         "shape": "every conv of one int8 forward of the 96^3 model at batch 8 (sums over the "
-                 "convs)",
+                 "18 launches: stem, 7 depthwise, 7 pointwise, 3 fused heads)",
     })
     kernels[3]["launches_data_parallel"] = dp["q1"]
     # the spatial path (phase 4h): launches by run, per rank

@@ -224,7 +224,8 @@ def save_subject_predictions(output_dir, subject, image_shape, boxes, labels, sc
 def predict_dataset(dataset, state, config, predict_subset="train", min_score=0.5,
                     top_k=100, output_dir=None, save_images=True,
                     sliding_window=False, overlap=0.25, max_overlap=None,
-                    volume_batch=1, per_patch_k=None, prefetch_depth=2, mesh=None):
+                    volume_batch=1, per_patch_k=None, prefetch_depth=2, mesh=None,
+                    predict_step=None):
     """Run detection over a subset on the state's device; returns
     per-subject ragged results and their ground truth.
 
@@ -237,10 +238,13 @@ def predict_dataset(dataset, state, config, predict_subset="train", min_score=0.
     checkpoint's NMS suppression IoU. ``prefetch_depth`` assembles host
     batches (NIfTI load, box derivation) on a background thread while the
     card runs (``utils/prefetch.py``); 0 disables it. ``mesh`` (a tuple of
-    devices) shards the sliding window's patches over them.
+    devices) shards the sliding window's patches over them. ``predict_step``
+    (fn(state, images) -> padded detections) scores the model-sized batches
+    in place of the model's own step: an int8 program, for one.
     """
-    step = make_predict_step(config, SSD3D(config), model_priors(config),
-                             min_score=min_score, top_k=top_k, max_overlap=max_overlap)
+    step = predict_step or make_predict_step(config, SSD3D(config), model_priors(config),
+                                             min_score=min_score, top_k=top_k,
+                                             max_overlap=max_overlap)
     sw_detectors = {}
 
     def sw_detect(images, n_volumes):  # (V, D, H, W, C), stacked same-shape volumes

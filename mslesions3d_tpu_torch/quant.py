@@ -13,9 +13,14 @@ PTQ in four steps:
    absmax(W[..., oc]) / 127, computed in float64), per-tensor int8
    activations from the calibration maxima; biases stay float32
    (:func:`quantize`).
-4. **Run**: every conv re-quantizes its float32 input (clip(round(x / sx))
-   to int8) and runs through Q1 (``kernels/qconv.py``: int8 x int8 ->
-   int32, then ``acc * (sx * sw) + b`` and the ReLU in float32). Decode,
+4. **Run**: every conv runs through Q1 (``kernels/qconv.py``: int8 x int8
+   -> int32, then ``acc * (sx * sw) + b`` and the ReLU in float32), whose
+   epilogue writes the int8 codes (clip(round(y / sx)) for the next conv's
+   sx) its consumers read: the stem quantizes the image as it loads, an
+   emitted layer also writes its heads' codes, and a feature layer's loc
+   and cls heads run as one conv writing float32 (:func:`run_program`).
+   :func:`quantized_forward_chain` is the same forward as JAX writes it
+   (float32 convs, a requantize before each), equal bit for bit. Decode,
    NMS and top-k stay float32 (``ops.nms.detect_objects``, K1 on the card).
 
 Scope: the MobileNet backbone family. The ConvNet uses InstanceNorm
@@ -35,11 +40,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .kernels.qconv import pack_weights, qconv_cuda, unpack_weights
+from .kernels.qconv import (pack_weights, qconv_codes_cuda, qconv_cuda, qconv_heads_cuda,
+                            requantize, unpack_weights)
 from .models.mobilenet import mobilenet_layer_plan
 from .models.ssd3d import SSD3DConfig
 
 BN_EPS = 1e-5
+_QKEYS = ("wq", "sx", "scale", "b")
 
 
 def _dhwio(weight: torch.Tensor) -> torch.Tensor:
@@ -204,19 +211,17 @@ def quantize(folded: dict, act_scales) -> dict:
                 config=folded["config"])
 
 
-def requantize(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    """clip(round(x / sx), -127, 127) as int8; round half to even, as jnp.round."""
-    return torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8)
-
-
 def _qconv(x: torch.Tensor, spec: dict, relu: bool) -> torch.Tensor:
-    """Symmetric int8 conv through Q1: int32 accumulation, fused float32 rescale."""
+    """Symmetric int8 conv through Q1 in float32: requantize, int32 accumulation, fused rescale."""
     return qconv_cuda(requantize(x, spec["sx"]), spec["wq"], spec["scale"], spec["b"],
                       spec["strides"], spec["groups"], relu)
 
 
-def quantized_forward(qmodel: dict, images: torch.Tensor):
-    """int8 forward: every conv s8 x s8 -> s32 through Q1; ReLU and requantize between."""
+def quantized_forward_chain(qmodel: dict, images: torch.Tensor):
+    """The int8 forward as a chain of float32 convs: each conv's float32
+    output requantized (plain torch) for the next, every conv through
+    :func:`kernels.qconv.qconv_cuda`. JAX's ``quantized_forward`` step for
+    step; :func:`quantized_forward` gives the same outputs bit for bit."""
     cfg = qmodel["config"]
     x = images.float()
     features = {}
@@ -235,6 +240,77 @@ def quantized_forward(qmodel: dict, images: torch.Tensor):
     return torch.cat(locs, 1), torch.cat(scores, 1)
 
 
+def fuse_heads(loc: dict, cls: dict) -> dict:
+    """A feature layer's loc and cls head specs as one conv: the weights,
+    scales and biases concatenated along Cout (loc first), the shared
+    activation scale, and ``split`` = loc's Cout."""
+    if not torch.equal(torch.as_tensor(loc["sx"]), torch.as_tensor(cls["sx"])):
+        raise ValueError("the loc and cls heads of a feature layer must share one activation "
+                         "scale (quantize gives them the feature map's)")
+    meta = {k: v for k, v in loc.items() if k not in _QKEYS}
+    return dict(meta, wq=torch.cat([torch.as_tensor(loc["wq"]), torch.as_tensor(cls["wq"])], -1),
+                scale=torch.cat([torch.as_tensor(loc["scale"]), torch.as_tensor(cls["scale"])]),
+                b=torch.cat([torch.as_tensor(loc["b"]), torch.as_tensor(cls["b"])]),
+                sx=torch.as_tensor(loc["sx"], dtype=torch.float32),
+                split=int(loc["wq"].shape[-1]))
+
+
+def fused_program(qmodel: dict) -> dict:
+    """The operands of the fused int8 forward (:func:`run_program`) from a
+    quantized program: each backbone conv's spec with ``sx_out``, the scales
+    of the codes its epilogue writes (the next conv's input scale, then, at
+    an emitted layer, its heads'), and per feature layer :func:`fuse_heads`."""
+    layers = qmodel["layers"]
+    heads = {k: fuse_heads(*qmodel["heads"][k]) for k in qmodel["feature_layers"]}
+    out = []
+    for i, spec in enumerate(layers):
+        scales = [layers[i + 1]["sx"]] if i + 1 < len(layers) else []
+        if spec["emit"] is not None:
+            scales.append(heads[spec["emit"]]["sx"])
+        if not scales:
+            raise ValueError(f"layer {i} feeds no conv: neither a next layer nor a head")
+        sx_out = torch.stack([torch.as_tensor(s, dtype=torch.float32) for s in scales])
+        out.append({**spec, "sx_out": sx_out.reshape(-1)})
+    return dict(layers=out, heads=heads, feature_layers=qmodel["feature_layers"],
+                config=qmodel["config"])
+
+
+def run_program(program: dict, images: torch.Tensor):
+    """The fused int8 forward over :func:`fused_program`'s operands: the
+    stem quantizes the float32 / bf16 image as it loads, every backbone
+    conv writes the int8 codes its consumers read (``qconv_codes_cuda``:
+    the next conv's, and at an emitted layer the heads'), and each feature
+    layer's loc and cls heads run as one conv (``qconv_heads_cuda``). One
+    Q1 launch a backbone conv and a feature layer, and no requantize pass."""
+    cfg = program["config"]
+    x = images if images.dtype in (torch.float32, torch.bfloat16) else images.float()
+    features = {}
+    layers = program["layers"]
+    for i, spec in enumerate(layers):
+        codes = qconv_codes_cuda(x, spec["wq"], spec["scale"], spec["b"], spec["sx_out"],
+                                 spec["strides"], spec["groups"], relu=True,
+                                 sx_in=spec["sx"] if i == 0 else None)
+        x = codes[0]
+        if spec["emit"] is not None:
+            features[spec["emit"]] = codes[-1]
+    locs, scores = [], []
+    for k in program["feature_layers"]:
+        head = program["heads"][k]
+        lo, cl = qconv_heads_cuda(features[k], head["wq"], head["scale"], head["b"],
+                                  head["split"])
+        lo, cl = _reshape_heads(lo, cl, cfg.n_classes)
+        locs.append(lo)
+        scores.append(cl)
+    return torch.cat(locs, 1), torch.cat(scores, 1)
+
+
+def quantized_forward(qmodel: dict, images: torch.Tensor):
+    """int8 forward: every conv s8 x s8 -> s32 through Q1, the ReLU and the
+    next convs' requantize fused into each conv's epilogue
+    (:func:`run_program`); equal bit for bit to :func:`quantized_forward_chain`."""
+    return run_program(fused_program(qmodel), images)
+
+
 def quantize_ssd3d(config: SSD3DConfig, state_dict: dict, calib_images, device="cuda") -> dict:
     """Fold, calibrate on ``device`` (the card by default) and quantize in one call."""
     from .serving import require_device
@@ -243,49 +319,70 @@ def quantize_ssd3d(config: SSD3DConfig, state_dict: dict, calib_images, device="
     return quantize(folded, calibrate(folded, calib_images))
 
 
-_QKEYS = ("wq", "sx", "scale", "b")
+_LAYER_KEYS = _QKEYS + ("sx_out",)
 
 
 class QuantizedSSD3D(nn.Module):
     """A quantized program as a module: images (B, D, H, W, C) -> (locs, scores).
 
-    The int8 weights, scales and biases are buffers, so ``.to(device)``
-    moves them and ``torch.export`` bakes them into a program. The weights
-    are stored as Q1 reads them (``kernels.qconv.pack_weights``), so that no
-    call repacks them.
+    Its buffers are :func:`fused_program`'s operands: each backbone conv's
+    int8 weights, ``sx``, ``scale``, ``b`` and ``sx_out``, and each feature
+    layer's loc and cls heads as one conv. ``.to(device)`` moves them and
+    ``torch.export`` bakes them into a program. The weights are stored as
+    Q1 reads them (``kernels.qconv.pack_weights``), so that no call repacks
+    them. :meth:`qmodel` gives the quantized program back, its head specs
+    views of the fused heads' buffers.
     """
 
     def __init__(self, qmodel: dict):
         super().__init__()
+        program = fused_program(qmodel)
         self.config = qmodel["config"]
         self.feature_layers = tuple(qmodel["feature_layers"])
-        self._layers = [self._keep(f"layer{i}", spec) for i, spec in enumerate(qmodel["layers"])]
-        self._heads = {k: tuple(self._keep(f"head{k}_{name}", spec)
-                                for name, spec in zip(("loc", "cls"), qmodel["heads"][k]))
+        self._layers = [self._keep(f"layer{i}", spec, _LAYER_KEYS)
+                        for i, spec in enumerate(program["layers"])]
+        self._heads = {k: self._keep(f"head{k}", program["heads"][k], _QKEYS)
                        for k in self.feature_layers}
 
-    def _keep(self, name: str, spec: dict) -> tuple:
-        for key in _QKEYS:
+    def _keep(self, name: str, spec: dict, keys: tuple) -> tuple:
+        for key in keys:
             value = torch.as_tensor(spec[key])
             if key == "wq":
                 value = pack_weights(value, spec["groups"])
             self.register_buffer(f"{name}_{key}", value)
-        return name, {k: v for k, v in spec.items() if k not in _QKEYS}
+        return name, keys, {k: v for k, v in spec.items() if k not in keys}
 
     def _spec(self, entry: tuple) -> dict:
-        name, meta = entry
-        spec = {**meta, **{key: getattr(self, f"{name}_{key}") for key in _QKEYS}}
+        name, keys, meta = entry
+        spec = {**meta, **{key: getattr(self, f"{name}_{key}") for key in keys}}
         spec["wq"] = unpack_weights(spec["wq"], meta["groups"])
         return spec
 
-    def qmodel(self) -> dict:
-        """The quantized program, its tensors the module's buffers."""
+    def program(self) -> dict:
+        """:func:`fused_program`'s operands, its tensors the module's buffers."""
         return dict(layers=[self._spec(e) for e in self._layers],
-                    heads={k: tuple(self._spec(e) for e in h) for k, h in self._heads.items()},
+                    heads={k: self._spec(e) for k, e in self._heads.items()},
                     feature_layers=self.feature_layers, config=self.config)
 
+    def qmodel(self) -> dict:
+        """The quantized program, its tensors the module's buffers."""
+        program = self.program()
+        heads = {}
+        for k, (name, _, meta) in self._heads.items():
+            fused, n = program["heads"][k], meta["split"]
+            wk = getattr(self, f"{name}_wq")
+            base = {key: v for key, v in meta.items() if key != "split"}
+            heads[k] = tuple({**base, "wq": unpack_weights(w), "sx": fused["sx"], "scale": sc,
+                              "b": b}
+                             for w, sc, b in ((wk[:n], fused["scale"][:n], fused["b"][:n]),
+                                              (wk[n:], fused["scale"][n:], fused["b"][n:])))
+        layers = [{key: v for key, v in spec.items() if key != "sx_out"}
+                  for spec in program["layers"]]
+        return dict(layers=layers, heads=heads, feature_layers=self.feature_layers,
+                    config=self.config)
+
     def forward(self, images: torch.Tensor):
-        return quantized_forward(self.qmodel(), images)
+        return run_program(self.program(), images)
 
 
 def make_quantized_detection_fn(config: SSD3DConfig, state_dict: dict, calib_images, *,

@@ -324,7 +324,8 @@ def test_int8_bundle_roundtrip(pair, tmp_path):
     exports, manifest = export_detector(cfg, sd, (2,), dtype="float32", quantize="int8",
                                         calib_images=x, platforms=["cpu"])
     assert manifest["quantize"] == "int8"
-    assert set(manifest["custom_ops"]) == {"msl::greedy_nms", "msl::qconv"}
+    assert set(manifest["custom_ops"]) == {"msl::greedy_nms", "msl::qconv_codes",
+                                           "msl::qconv_heads"}
     served = ServingDetector(save_bundle(tmp_path / "q.mslx", exports, manifest),
                              device="cpu").predict(x)
     live = quant.make_quantized_detection_fn(cfg, sd, x, device="cpu")

@@ -26,7 +26,12 @@ over the validation volumes, the candidates above the score (the valid
 share of the K a row), K1's kept ones (held against the plain NMS), and
 the kept candidates that a one-pass NMS would have dropped (suppression
 chains). Results go to <out>/seed<S>.json (``--out``, by default
-build/trained_check) and a summary is printed. It imports no JAX.
+build/trained_check) and a summary is printed. Each seed's ``last`` is also
+scored in int8 (``int8_scoring``: quantized on the card, calibrated on the
+first validation batch of 4 volumes as tools/quant_quality.py does) through
+the same predict, eval grid and operating points, recorded as
+``scored["last_int8"]`` with its difference from the float run
+(``minus_float``). It imports no JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from mslesions3d_tpu_torch.cli import plots, recipe
@@ -102,6 +108,44 @@ def served_path_stats(ckpt: Path, data: Path) -> dict:
             "kept_by_chain": chain_n, "k1_vs_plain_mismatches": mism}
 
 
+def int8_scoring(ck: Path, data: Path, preds: Path) -> None:
+    """The checkpoint's int8 model scored through the float run's predict
+    path: quantized on the card (``quant.make_quantized_detection_fn``: BN
+    folded, per-channel int8 weights, Q1's fused convs), calibrated on the
+    first validation batch of 4 volumes as tools/quant_quality.py does, then
+    ``cli.predict.predict_dataset`` with the recipe's flags writes the
+    per-subject files and metrics that ``cli.eval`` and
+    ``cli.plots.operating_points`` read, as for the float run."""
+    from mslesions3d_tpu_torch import quant
+    from mslesions3d_tpu_torch.cli import predict as predict_cli
+    from mslesions3d_tpu_torch.data.datasets import SyntheticDataModule
+
+    args = predict_cli.build_parser().parse_args(
+        ["-d", str(data), "-m", str(ck), "-o", str(preds), *recipe.PREDICT_FLAGS, "-si", "0",
+         "--device", DEVICE])
+    config, state = predict_cli.load_predict_state(ck, DEVICE)
+    calib_dm = SyntheticDataModule(data, n_classes=config.n_classes - 1, batch_size=4,
+                                   max_objects=16)
+    calib_dm.setup("fit")
+    calib = np.asarray(next(iter(calib_dm.val_batches()))["image"], np.float32)
+    program = quant.make_quantized_detection_fn(config, state.state_dict(), calib,
+                                                min_score=args.min_score, top_k=args.top_k,
+                                                device=DEVICE)
+
+    def step(_state, images):
+        with torch.inference_mode():
+            return program(torch.as_tensor(images, device=DEVICE))
+
+    dataset = predict_cli.build_datamodule(args)
+    dataset.setup("predict")
+    output_dir = preds / "validation_set" / f"min_score_{args.min_score}"
+    results, gt = predict_cli.predict_dataset(
+        dataset, state, config, "validation", args.min_score, args.top_k, output_dir,
+        bool(args.save_images), predict_step=step)
+    for min_iou in (0.5, 0.1):
+        predict_cli.compute_subjects_mAP(results, gt, config.n_classes, min_iou, output_dir)
+
+
 def worker(seed: int, data: Path, out: Path) -> dict:
     from mslesions3d_tpu_torch.cli import predict as predict_cli
     from mslesions3d_tpu_torch.cli import train as train_cli
@@ -133,6 +177,17 @@ def worker(seed: int, data: Path, out: Path) -> dict:
         scored[tag] = {"checkpoint": ck.name, **plots.operating_points(run_dir),
                        "predict_s": predict_s, "eval_s": eval_s,
                        "served_path_at_0.5": served_path_stats(ck, data)}
+    # `last` in int8, through the same scoring, against its float run
+    preds = out / "preds_last_int8"
+    t1 = time.perf_counter()
+    int8_scoring(picks["last"], data, preds)
+    predict_s = time.perf_counter() - t1
+    recipe.evaluate_grid(data, preds)
+    points = plots.operating_points(preds / "validation_set" / "min_score_0.0")
+    scored["last_int8"] = {
+        "checkpoint": "last", **points, "predict_s": predict_s,
+        "minus_float": {k: v - scored["last"][k] for k, v in points.items()
+                        if k.startswith(("mAP@", "best_f1@")) and not k.endswith("_at_score")}}
     hist = result["history"]
     return {"seed": seed, "train_s": train_s, "steps": int(sum(e["steps"] for e in
                                                             result["timings"]["epochs"])),
@@ -205,7 +260,8 @@ def main() -> int:
             r = results[name] = json.loads(p.read_text())
             for tag, sc in r["scored"].items():
                 print(name, tag, {k: v for k, v in sc.items() if k != "served_path_at_0.5"},
-                      {k: v for k, v in sc["served_path_at_0.5"].items() if k != "valid_per_row"})
+                      {k: v for k, v in sc.get("served_path_at_0.5", {}).items()
+                       if k != "valid_per_row"})
             print(name, "train_s", r["train_s"], "steps", r["steps"], "wall_s", r["wall_s"],
                   "tf32", r["tf32"], "cudnn_deterministic", r["cudnn_deterministic"])
         else:
