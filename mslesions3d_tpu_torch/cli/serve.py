@@ -18,7 +18,12 @@ coalesced into shared predict calls (``serving.RequestBatcher``): while one
 call is in flight, arriving volumes queue and ride the next call as one
 concatenated batch, which runs on the bundle's batch sizes (the largest
 that fits first; a bundle exported at 1 2 4 8 serves 7 rows in 3 program
-calls, one at 1 8 in 7).
+calls, one at 1 8 in 7). GET /stats returns the counters since the server
+started: the batcher's ``requests``, ``rows``, ``device_calls`` (predict
+calls) and ``queue_wait_s`` (each request's seconds from its arrival in the
+queue to the dispatch of its call, summed), and ``program_calls`` and
+``padded_rows`` (``serving.route``'s program calls and padded rows; these
+two count every route of the process).
 """
 
 from __future__ import annotations
@@ -65,11 +70,12 @@ def make_http_server(det, port: int):
     """ThreadingHTTPServer on 127.0.0.1 over a ServingDetector (stdlib only).
 
     POST /predict: .npy body -> JSON {volumes: [{count, boxes_frac, labels,
-    scores}]}. GET /healthz: the manifest's summary. Concurrent POSTs are
+    scores}]}. GET /healthz: the manifest's summary. GET /stats: the
+    batcher's and ``route``'s counters (module docstring). Concurrent POSTs are
     coalesced into shared predict calls by ``serving.RequestBatcher``
     (``server.batcher``); each handler gets its own rows back.
     """
-    from ..serving import RequestBatcher
+    from ..serving import RequestBatcher, route
 
     batcher = RequestBatcher(det.predict)
     expected = tuple(det.manifest["input"]["shape"][1:4])
@@ -87,6 +93,12 @@ def make_http_server(det, port: int):
             self.wfile.write(body)
 
         def do_GET(self):
+            if self.path == "/stats":
+                return self._send(200, {
+                    "requests": batcher.requests, "rows": batcher.rows,
+                    "device_calls": batcher.device_calls, "queue_wait_s": batcher.queue_wait_s,
+                    "program_calls": route.program_calls, "padded_rows": route.padded_rows,
+                })
             if self.path != "/healthz":
                 return self._send(404, {"error": "unknown path"})
             m = det.manifest
@@ -141,7 +153,7 @@ def main(argv=None):
     if args.listen is not None:
         server = make_http_server(det, args.listen)
         print(f"[serve] listening on http://127.0.0.1:{server.server_port} "
-              f"(POST /predict, GET /healthz)", flush=True)
+              f"(POST /predict, GET /healthz, GET /stats)", flush=True)
         server.serve_forever()
         return server
     if not args.inputs or args.output_dir is None:

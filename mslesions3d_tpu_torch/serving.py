@@ -18,6 +18,15 @@ torch ops (``msl::greedy_nms``, ``msl::fused_depthwise_bn_relu``,
 the live model does: on the card they launch the kernels, on the CPU their
 plain versions run.
 
+Spans (``utils.profiling.span``, profiler ranges opened only while a
+profiler records): ``msl.route`` around a whole :func:`route` call, and in
+it, a chunk at a time, ``msl.route.upload`` (the host cast and the copy to
+the device), ``msl.detect`` (the program call) and ``msl.route.fetch`` (the
+wait for the device and the copy back); ``msl.detect_objects`` around the
+detection of a live :class:`DetectionProgram`. Counters: ``route.program_calls``,
+``route.padded_rows``, and :class:`RequestBatcher`'s ``requests``, ``rows``,
+``device_calls`` and ``queue_wait_s``.
+
 Bundle layout (a single ``.mslx`` zip):
   manifest.json            config, input spec, batch sizes, platforms, versions
   fn_b{N}_{platform}.pt2   a ``torch.export`` program per batch size and platform
@@ -29,6 +38,7 @@ import io
 import json
 import queue
 import threading
+import time
 import types
 import zipfile
 from pathlib import Path
@@ -40,6 +50,7 @@ from torch import nn
 from . import quant
 from .models.ssd3d import SSD3D, SSD3DConfig, model_priors
 from .ops.nms import detect_objects
+from .utils.profiling import span
 
 MANIFEST_VERSION = 1
 FORMAT = "torch.export"
@@ -75,9 +86,10 @@ class DetectionProgram(nn.Module):
 
     def forward(self, images: torch.Tensor) -> dict:
         locs, scores = self.model(images)
-        return detect_objects(locs, scores, self.priors, n_classes=self.n_classes,
-                              min_score=self.min_score, max_overlap=self.max_overlap,
-                              top_k=self.top_k)
+        with span("msl.detect_objects"):
+            return detect_objects(locs, scores, self.priors, n_classes=self.n_classes,
+                                  min_score=self.min_score, max_overlap=self.max_overlap,
+                                  top_k=self.top_k)
 
 
 class Detector:
@@ -136,22 +148,37 @@ def route(images: np.ndarray, batch_sizes, device, dtype, call) -> dict:
     partial chunk is padded with zero volumes whose rows are dropped.
     ``call`` maps a (b, ...) tensor on ``device`` in ``dtype`` to a
     detection dict of tensors; the result is numpy, concatenated.
+    ``route.program_calls`` counts the calls of ``call`` and
+    ``route.padded_rows`` the zero volumes padded in, over the process and
+    its threads.
     """
-    n = images.shape[0]
-    outs = []
-    start = 0
-    while start < n:
-        fits = [b for b in batch_sizes if b <= n - start]
-        b = max(fits) if fits else min(batch_sizes)
-        chunk = images[start: start + b]
-        pad = b - chunk.shape[0]
-        if pad:
-            chunk = np.concatenate([chunk, np.zeros((pad, *chunk.shape[1:]), chunk.dtype)])
-        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device, dtype)
-        det = call(x)
-        outs.append({k: v[: b - pad].cpu().numpy() for k, v in det.items()})
-        start += b - pad
-    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    with span("msl.route"):
+        n = images.shape[0]
+        outs = []
+        start = 0
+        while start < n:
+            fits = [b for b in batch_sizes if b <= n - start]
+            b = max(fits) if fits else min(batch_sizes)
+            chunk = images[start: start + b]
+            pad = b - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate([chunk, np.zeros((pad, *chunk.shape[1:]), chunk.dtype)])
+            with span("msl.route.upload"):
+                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device, dtype)
+            with span("msl.detect"):
+                det = call(x)
+            with _ROUTE_COUNTS:
+                route.program_calls += 1
+                route.padded_rows += pad
+            with span("msl.route.fetch"):
+                outs.append({k: v[: b - pad].cpu().numpy() for k, v in det.items()})
+            start += b - pad
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+route.program_calls = 0
+route.padded_rows = 0
+_ROUTE_COUNTS = threading.Lock()  # route may run in several threads at once
 
 
 def require_device(device, caller: str) -> torch.device:
@@ -412,6 +439,11 @@ class RequestBatcher:
     batch sizes. ``submit(rows)``
     blocks until its rows' results are ready and returns its slice of the
     detection dict. The bounded queue gives backpressure.
+
+    Counters, written by the dispatcher alone: ``device_calls`` (predict
+    calls issued), ``requests`` and ``rows`` (those the calls carried) and
+    ``queue_wait_s`` (the seconds each request spent from its ``submit`` to
+    the dispatch of its call, summed).
     """
 
     def __init__(self, predict_fn, max_rows: int = 64, max_queue: int = 256):
@@ -419,6 +451,9 @@ class RequestBatcher:
         self._max_rows = max_rows
         self._q: queue.Queue = queue.Queue(maxsize=max_queue)
         self.device_calls = 0  # predict calls issued (each one program call or more)
+        self.requests = 0
+        self.rows = 0
+        self.queue_wait_s = 0.0
         self._thread = threading.Thread(target=self._run, name="msl-request-batcher",
                                         daemon=True)
         self._thread.start()
@@ -426,7 +461,7 @@ class RequestBatcher:
     def submit(self, rows: np.ndarray) -> dict:
         done = threading.Event()
         slot: dict = {}
-        self._q.put((rows, done, slot))
+        self._q.put((rows, done, slot, time.perf_counter()))
         done.wait()
         if "error" in slot:
             raise slot["error"]
@@ -456,16 +491,20 @@ class RequestBatcher:
                 rows += nxt[0].shape[0]
             stacked = (batch[0][0] if len(batch) == 1
                        else np.concatenate([b[0] for b in batch], axis=0))
+            now = time.perf_counter()
+            self.requests += len(batch)
+            self.rows += stacked.shape[0]
+            self.queue_wait_s += sum(now - queued for *_, queued in batch)
             try:
                 self.device_calls += 1
                 res = self._predict(stacked)
             except Exception as e:  # deliver to every coalesced caller
-                for _, done, slot in batch:
+                for _, done, slot, _ in batch:
                     slot["error"] = e
                     done.set()
                 continue
             off = 0
-            for arr, done, slot in batch:
+            for arr, done, slot, _ in batch:
                 n = arr.shape[0]
                 slot["result"] = {k: v[off:off + n] for k, v in res.items()}
                 off += n

@@ -29,7 +29,9 @@ from the host where a stepped step is thousands.
   the caller's state is copied into it at the start of a call and the
   result cloned out at the end (one copy of params, optimizer state, BN
   statistics and EMA each way), so no state handed out aliases a buffer a
-  later call writes.
+  later call writes. The copy in runs under the span ``msl.epoch.state_in``,
+  the clone out and the metrics' split under ``msl.epoch.state_out``
+  (``utils.profiling.span``); the replays run none.
 
 Nothing here falls back to stepping: a capture or replay that fails raises.
 """
@@ -42,6 +44,7 @@ import time
 import torch
 
 from ..parallel.mesh import tree_rebuild, tree_tensors
+from ..utils.profiling import span
 from .state import TrainState
 
 # the per-step metrics the epoch keeps: the keys of the JAX package's scan body
@@ -109,13 +112,15 @@ class GraphedEpoch:
         if cap is None or cap.key != key or cap.generator is not generator:
             self.captured = None  # the old graph's pool goes before the new one is made
             cap = self.captured = self._capture(state, data, batch, generator, key)
-        torch._foreach_copy_(tree_tensors(cap.state), tree_tensors(state))
+        with span("msl.epoch.state_in"):
+            torch._foreach_copy_(tree_tensors(cap.state), tree_tensors(state))
         rows = torch.empty((n, len(EPOCH_METRICS)), dtype=torch.float32, device=device)
         for i in range(n):
             cap.idx.copy_(idx_matrix[i])
             cap.graph.replay()
             rows[i].copy_(cap.metrics)
-        return _cloned(cap.state), split_metrics(rows)
+        with span("msl.epoch.state_out"):
+            return _cloned(cap.state), split_metrics(rows)
 
     def _capture(self, state, data, batch, generator, key) -> _Capture:
         t0 = time.perf_counter()

@@ -73,6 +73,7 @@ from ..ops.nms import detect_objects
 from ..parallel.collectives import all_reduce_sum, data_parallel, exchange_rows, gather_rows
 from ..parallel.mesh import SpatialMesh, TensorMesh, local_row_runs, rows_split
 from ..parallel.spatial import depth_slab
+from ..utils.profiling import span
 from .graphs import GraphedEpoch, split_metrics, stack_metrics
 from .state import TrainState
 
@@ -358,21 +359,23 @@ def make_gathered_train_epoch(config: SSD3DConfig, model: SSD3D, priors_center,
     On the card the step is captured into a CUDA graph at the first call for
     a key (``train/graphs.py``) and replayed once a row; the capture is kept
     on ``fn.graphed`` for later calls. On the CPU the steps run in a plain
-    loop. The state returned shares no memory with a later call's.
+    loop. The state returned shares no memory with a later call's. A call
+    runs under the span ``msl.epoch`` (``utils.profiling.span``).
     """
     step = make_gathered_train_step(config, model, priors_center, augment, **kwargs)
     graphed = GraphedEpoch(step)
 
     def epoch(state, data, idx_matrix, generator=None):
-        if state.device.type == "cuda":
-            return graphed(state, data, idx_matrix, generator)
-        if state.device.type != "cpu":
+        if state.device.type not in ("cuda", "cpu"):
             raise ValueError(f"make_gathered_train_epoch: no epoch program on {state.device}")
-        rows = []
-        for idx in torch.as_tensor(idx_matrix, device=state.device):
-            state, m = step(state, data, idx, generator)
-            rows.append(stack_metrics(m))
-        return state, split_metrics(torch.stack(rows))
+        with span("msl.epoch"):
+            if state.device.type == "cuda":
+                return graphed(state, data, idx_matrix, generator)
+            rows = []
+            for idx in torch.as_tensor(idx_matrix, device=state.device):
+                state, m = step(state, data, idx, generator)
+                rows.append(stack_metrics(m))
+            return state, split_metrics(torch.stack(rows))
 
     epoch.graphed = graphed
     return epoch

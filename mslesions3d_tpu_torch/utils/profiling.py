@@ -7,8 +7,10 @@ Usage:
     with trace("build/trace"):                 # torch.profiler trace for TensorBoard
         fn(*args)
 
-``time_fn``, ``trace`` and ``StepTimer`` are the JAX package's. The rest
-reads the device's own clock from a ``torch.profiler`` trace:
+``time_fn`` and ``trace`` are the JAX package's. :func:`span` opens the
+program's own named ranges (``msl.route``, ``msl.epoch``, ...) while a
+profiler records. The rest reads the device's own clock from a
+``torch.profiler`` trace:
 :func:`device_ms` (the kernels one call launches, in total and by kernel
 function), :func:`device_ms_rounds`, :func:`device_busy_ms` (the union of
 the kernels' intervals) and :func:`profile_calls` (busy time, idle share,
@@ -42,6 +44,28 @@ def block(tree):
     return tree
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range called ``name`` while a profiler records, else a
+    shared null context (a check of ~0.15 us on the host).
+
+    The range is ``torch._C._profiler._RecordFunctionFast``, the function-scope
+    range torch's inductor opens around its kernels, not
+    ``torch.profiler.record_function``: that one is a user annotation, which
+    the profiler mirrors on the device timeline as a range spanning the
+    range's kernels, so a reader of the device's events would count it as
+    busy time. The profiler's ``device_time_total`` of the range still sums
+    the kernels launched inside it. Open spans in eager host code only: a
+    CUDA graph's replay runs none of them, and under ``torch.export`` (with
+    no profiler recording) the null context leaves no node in the program.
+    """
+    if torch._C._autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
+
+
 def time_fn(fn, args=(), kwargs=None, iters: int = 20, warmup: int = 3) -> float:
     """Steady-state wall-clock ms per call: a first call (the kernels build
     and the caches warm), ``warmup`` more, then ``iters`` timed ones, each
@@ -68,37 +92,6 @@ def trace(logdir):
     with profile(activities=activities,
                  on_trace_ready=torch.profiler.tensorboard_trace_handler(str(logdir))):
         yield
-
-
-class StepTimer:
-    """Lightweight per-step timing for training loops.
-
-    Records wall seconds between successive .tick() calls; .summary() gives
-    mean/p50/max over the recorded window.
-    """
-
-    def __init__(self, window: int = 200):
-        self.window = window
-        self.times: list[float] = []
-        self._last: float | None = None
-
-    def tick(self):
-        now = time.perf_counter()
-        if self._last is not None:
-            self.times.append(now - self._last)
-            if len(self.times) > self.window:
-                self.times.pop(0)
-        self._last = now
-
-    def summary(self) -> dict:
-        if not self.times:
-            return {}
-        ts = sorted(self.times)
-        return {
-            "step_time_mean_s": sum(ts) / len(ts),
-            "step_time_p50_s": ts[len(ts) // 2],
-            "step_time_max_s": ts[-1],
-        }
 
 
 def kernel_name(key: str) -> str:

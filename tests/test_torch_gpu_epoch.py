@@ -26,13 +26,17 @@ rtol 1e-4 (the port's tolerance against the JAX package) and the params as
 ``tests/test_torch_gpu_train.py`` holds them. Then: a non-finite step
 inside an epoch is skipped as the stepped step skips it; a second epoch
 replays without capturing again and sees the generator's re-seed; a
-change of batch captures again; a capture that fails raises; and
-``Trainer(epoch_scan=True)`` equals ``epoch_scan=False`` on the card.
+change of batch captures again; the spans ``msl.epoch.state_in`` and
+``msl.epoch.state_out`` bracket the replays inside ``msl.epoch``; a capture
+that fails raises; and ``Trainer(epoch_scan=True)`` equals
+``epoch_scan=False`` on the card.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from mslesions3d_tpu_torch.data import augment as augment_module
 from mslesions3d_tpu_torch.data.augment import AugmentConfig
@@ -202,6 +206,39 @@ def test_replays_see_the_reseed_and_a_new_batch_captures_again(deterministic):
     graphed = epoch(state, data, _idx(4), gen)
     assert epoch.graphed.captures == 2
     _assert_equal(graphed, _stepped(step, state, data, _idx(4), gen.manual_seed(3)))
+
+
+def test_epoch_spans_bracket_the_replays(deterministic):
+    """Under the profiler a call opens ``msl.epoch``, and inside it one
+    ``msl.epoch.state_in`` before the replays and one
+    ``msl.epoch.state_out`` after them, each launching work on the card;
+    the replays open no span, and no span reaches the device's timeline."""
+    _need_card()
+    state, epoch, _step, data = _setup("plain")
+    idx = torch.from_numpy(IDX).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, _ = epoch(state, data, idx, gen)  # the capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch(state, data, idx, gen)
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = {name: [e for e in events if e.name == name]
+             for name in ("msl.epoch", "msl.epoch.state_in", "msl.epoch.state_out")}
+    assert {name: len(found) for name, found in spans.items()} == dict.fromkeys(spans, 1)
+    assert all(e.device_type == DeviceType.CPU and not e.is_user_annotation
+               for e in events if e.name.startswith("msl."))
+    (whole,), (state_in,), (state_out,) = spans.values()
+    replays = sorted(e.time_range.start for e in events if e.name == "cudaGraphLaunch")
+    assert len(replays) == len(IDX) and epoch.graphed.captures == 1
+    assert whole.time_range.start <= state_in.time_range.start
+    assert state_in.time_range.end <= replays[0] and replays[-1] <= state_out.time_range.start
+    assert state_out.time_range.end <= whole.time_range.end
+    for span in (state_in, state_out):
+        assert span.device_time_total > 0
+        assert any(e.device_type == DeviceType.CPU and e.name.startswith("cuda")
+                   and span.time_range.start <= e.time_range.start < span.time_range.end
+                   for e in events)
 
 
 def test_trainer_epoch_scan_equals_stepping_on_the_card(tmp_path, deterministic):

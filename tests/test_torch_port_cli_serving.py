@@ -9,7 +9,7 @@
   1e-4, everything else equal; detections whose scores lie within 1e-4 of
   each other match as a set. The classification heads are scaled x30 so
   the scores spread.
-- The HTTP server (``make_http_server``): /healthz, /predict with 3-D, 4-D
+- The HTTP server (``make_http_server``): /healthz, /stats, /predict with 3-D, 4-D
   and 5-D bodies equal to a direct ``predict``, 400 for a wrong shape and a
   malformed body, and concurrent clients coalesced into fewer device calls
   than requests (``tests/test_serving.py``'s checks).
@@ -224,6 +224,27 @@ def test_http_healthz_and_predict(http):
             np.testing.assert_array_equal(np.asarray(v["scores"], np.float32),
                                           ref["scores"][i][: v["count"]])
             assert v["labels"] == ref["labels"][i][: v["count"]].tolist()
+
+
+def test_http_stats_counts_requests_rows_and_program_calls(http):
+    """GET /stats: the batcher's counters since the server started, and
+    ``route``'s program calls and padded rows (counted over the process)."""
+    from mslesions3d_tpu_torch.serving import route
+
+    _, _, base = http
+    stats = json.loads(urllib.request.urlopen(f"{base}/stats").read())
+    assert {k: stats[k] for k in ("requests", "rows", "device_calls", "queue_wait_s")} == {
+        "requests": 0, "rows": 0, "device_calls": 0, "queue_wait_s": 0.0}
+    assert (stats["program_calls"], stats["padded_rows"]) == (route.program_calls,
+                                                              route.padded_rows)
+    vols = np.random.default_rng(8).normal(size=(3, *INPUT, 1)).astype(np.float32)
+    _post(base, vols)  # 3 rows on the bundle's sizes 1 and 2: two program calls
+    _post(base, vols[0])
+    after = json.loads(urllib.request.urlopen(f"{base}/stats").read())
+    assert (after["requests"], after["rows"], after["device_calls"]) == (2, 4, 2)
+    assert after["queue_wait_s"] >= 0.0
+    assert after["program_calls"] - stats["program_calls"] == 3
+    assert after["padded_rows"] == stats["padded_rows"]
 
 
 def test_http_refuses_bad_bodies_and_stays_up(http):

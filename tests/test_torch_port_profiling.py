@@ -3,7 +3,6 @@ the JAX package's ``utils/profiling.py`` and ``utils/cache.py``.
 
 * ``time_fn`` calls the function as the JAX one does (a first call, the
   warm-up, the timed calls) and returns a positive ms a call;
-* ``StepTimer`` gives the JAX one's summary, key for key, on the same clock;
 * ``trace`` writes a ``torch.profiler`` trace into its directory;
 * ``device_busy_ms`` takes the union of the kernels' intervals, and the
   device-clock helpers raise where the profiler sees no kernel (here, with
@@ -13,7 +12,6 @@ the JAX package's ``utils/profiling.py`` and ``utils/cache.py``.
   compiler's ``--version``, so another version builds anew.
 """
 
-import time
 from types import SimpleNamespace
 
 import jax
@@ -45,19 +43,6 @@ def test_time_fn_calls_as_jax():
     assert ours.calls == theirs.calls == 1 + 2 + 7
     assert ms > 0 and jax_ms > 0
     assert profiling.block({"a": [torch.ones(2)], "b": (1, "x")})["a"][0].sum() == 2
-
-
-def test_step_timer_equals_jax(monkeypatch):
-    clock = iter([0.0, 0.5, 0.75, 2.0, 2.1, 2.2] * 2)
-    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-    ours, theirs = profiling.StepTimer(window=4), jax_profiling.StepTimer(window=4)
-    assert ours.summary() == theirs.summary() == {}
-    for timer in (ours, theirs):
-        for _ in range(6):
-            timer.tick()
-    assert ours.summary() == pytest.approx(theirs.summary())
-    assert set(ours.summary()) == {"step_time_mean_s", "step_time_p50_s", "step_time_max_s"}
-    assert ours.times == pytest.approx([0.25, 1.25, 0.1, 0.1])  # the window keeps the last 4
 
 
 def test_trace_writes_a_trace(tmp_path):
