@@ -21,9 +21,11 @@ that fits first; a bundle exported at 1 2 4 8 serves 7 rows in 3 program
 calls, one at 1 8 in 7). GET /stats returns the counters since the server
 started: the batcher's ``requests``, ``rows``, ``device_calls`` (predict
 calls) and ``queue_wait_s`` (each request's seconds from its arrival in the
-queue to the dispatch of its call, summed), and ``program_calls`` and
-``padded_rows`` (``serving.route``'s program calls and padded rows; these
-two count every route of the process).
+queue to the dispatch of its call, summed), and ``program_calls``,
+``padded_rows``, ``staged_uploads`` and ``staged_bytes`` (``serving.route``'s
+program calls, padded rows, the program calls whose float32 input was staged
+through pinned memory to the card, and the host bytes so staged; these four
+count every route of the process).
 """
 
 from __future__ import annotations
@@ -98,6 +100,7 @@ def make_http_server(det, port: int):
                     "requests": batcher.requests, "rows": batcher.rows,
                     "device_calls": batcher.device_calls, "queue_wait_s": batcher.queue_wait_s,
                     "program_calls": route.program_calls, "padded_rows": route.padded_rows,
+                    "staged_uploads": route.staged_uploads, "staged_bytes": route.staged_bytes,
                 })
             if self.path != "/healthz":
                 return self._send(404, {"error": "unknown path"})

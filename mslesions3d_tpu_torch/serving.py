@@ -18,14 +18,22 @@ torch ops (``msl::greedy_nms``, ``msl::fused_depthwise_bn_relu``,
 the live model does: on the card they launch the kernels, on the CPU their
 plain versions run.
 
+On a card, :func:`route` stages its uploads (:class:`_Staging`): the host
+casts a chunk into a pinned buffer of the thread's in the served dtype, and
+the copy to the card runs while the host launches the program. On the CPU a
+chunk takes one ``.to(device, dtype)``.
+
 Spans (``utils.profiling.span``, profiler ranges opened only while a
 profiler records): ``msl.route`` around a whole :func:`route` call, and in
-it, a chunk at a time, ``msl.route.upload`` (the host cast and the copy to
-the device), ``msl.detect`` (the program call) and ``msl.route.fetch`` (the
-wait for the device and the copy back); ``msl.detect_objects`` around the
-detection of a live :class:`DetectionProgram`. Counters: ``route.program_calls``,
-``route.padded_rows``, and :class:`RequestBatcher`'s ``requests``, ``rows``,
-``device_calls`` and ``queue_wait_s``.
+it, a chunk at a time, ``msl.route.upload`` (the host cast and, on a
+card, the queued copy; on the CPU the ``.to``), ``msl.detect``
+(the program call) and ``msl.route.fetch`` (the wait for the device and the
+copy back); ``msl.detect_objects`` around the detection of a live
+:class:`DetectionProgram`. Counters: ``route.program_calls``,
+``route.padded_rows``, ``route.staged_uploads`` (program calls whose input
+was staged) and ``route.staged_bytes`` (the host bytes staged), and
+:class:`RequestBatcher`'s ``requests``, ``rows``, ``device_calls`` and
+``queue_wait_s``.
 
 Bundle layout (a single ``.mslx`` zip):
   manifest.json            config, input spec, batch sizes, platforms, versions
@@ -147,13 +155,17 @@ def route(images: np.ndarray, batch_sizes, device, dtype, call) -> dict:
     Each chunk takes the largest batch size that fits the rows left; a last
     partial chunk is padded with zero volumes whose rows are dropped.
     ``call`` maps a (b, ...) tensor on ``device`` in ``dtype`` to a
-    detection dict of tensors; the result is numpy, concatenated.
-    ``route.program_calls`` counts the calls of ``call`` and
-    ``route.padded_rows`` the zero volumes padded in, over the process and
-    its threads.
+    detection dict of tensors; the result is numpy, concatenated. A chunk
+    bound for a card is staged (:class:`_Staging`, its padded rows zeroed
+    there); on the CPU it goes in one ``.to(device, dtype)``.
+    ``route.program_calls`` counts the calls of ``call``,
+    ``route.padded_rows`` the zero volumes padded in, ``route.staged_uploads``
+    the calls whose input was staged and ``route.staged_bytes`` the host
+    bytes staged, over the process and its threads.
     """
     with span("msl.route"):
         n = images.shape[0]
+        staged = torch.device(device).type == "cuda"
         outs = []
         start = 0
         while start < n:
@@ -161,15 +173,21 @@ def route(images: np.ndarray, batch_sizes, device, dtype, call) -> dict:
             b = max(fits) if fits else min(batch_sizes)
             chunk = images[start: start + b]
             pad = b - chunk.shape[0]
-            if pad:
+            if pad and not staged:
                 chunk = np.concatenate([chunk, np.zeros((pad, *chunk.shape[1:]), chunk.dtype)])
             with span("msl.route.upload"):
-                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device, dtype)
+                if staged:
+                    x = _staging(device).upload(chunk, b, dtype)
+                else:
+                    x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device, dtype)
             with span("msl.detect"):
                 det = call(x)
             with _ROUTE_COUNTS:
                 route.program_calls += 1
                 route.padded_rows += pad
+                if staged:
+                    route.staged_uploads += 1
+                    route.staged_bytes += chunk.nbytes
             with span("msl.route.fetch"):
                 outs.append({k: v[: b - pad].cpu().numpy() for k, v in det.items()})
             start += b - pad
@@ -178,7 +196,54 @@ def route(images: np.ndarray, batch_sizes, device, dtype, call) -> dict:
 
 route.program_calls = 0
 route.padded_rows = 0
+route.staged_uploads = 0
+route.staged_bytes = 0
 _ROUTE_COUNTS = threading.Lock()  # route may run in several threads at once
+
+
+class _Staging:
+    """One thread's uploads to one card: a pinned host buffer in the served
+    dtype, grown to the largest chunk, and the event of its last copy.
+
+    The host waits for that copy to end, casts the caller's rows into the
+    buffer (a ``copy_`` on torch's host threads, the cast ``.to(device,
+    dtype)`` makes, so the input is the same bit for bit) and queues one
+    copy of it into the input on the current stream, which the card runs
+    while the host launches the program. Padded rows are zeroed on the card.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host = torch.empty(0)
+        self.done = torch.cuda.Event()
+
+    def upload(self, rows: np.ndarray, b: int, dtype) -> torch.Tensor:
+        """``rows`` (n <= b, ...) -> (b, ...) ``dtype`` on the card, rows n to
+        b zero, ordered before the current stream's next work."""
+        part = torch.from_numpy(np.ascontiguousarray(rows))
+        self.done.synchronize()  # the buffer is not refilled while it is copied
+        if self.host.dtype != dtype or self.host.numel() < part.numel():
+            self.host = torch.empty(part.numel(), dtype=dtype, pin_memory=True)
+        host = self.host[: part.numel()].view(part.shape)
+        host.copy_(part)
+        x = torch.empty((b, *part.shape[1:]), dtype=dtype, device=self.device)
+        x[: len(part)].copy_(host, non_blocking=True)
+        self.done.record(torch.cuda.current_stream(self.device))
+        if len(part) < b:
+            x[len(part):].zero_()
+        return x
+
+
+_STAGING = threading.local()  # each thread's _Staging by card: no two threads share a buffer
+
+
+def _staging(device) -> _Staging:
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    by_card = _STAGING.__dict__.setdefault("by_card", {})
+    if index not in by_card:
+        by_card[index] = _Staging(torch.device("cuda", index))
+    return by_card[index]
 
 
 def require_device(device, caller: str) -> torch.device:

@@ -228,15 +228,16 @@ def test_http_healthz_and_predict(http):
 
 def test_http_stats_counts_requests_rows_and_program_calls(http):
     """GET /stats: the batcher's counters since the server started, and
-    ``route``'s program calls and padded rows (counted over the process)."""
+    ``route``'s program calls, padded rows and staged uploads and bytes
+    (counted over the process; a CPU bundle stages nothing)."""
     from mslesions3d_tpu_torch.serving import route
 
     _, _, base = http
     stats = json.loads(urllib.request.urlopen(f"{base}/stats").read())
     assert {k: stats[k] for k in ("requests", "rows", "device_calls", "queue_wait_s")} == {
         "requests": 0, "rows": 0, "device_calls": 0, "queue_wait_s": 0.0}
-    assert (stats["program_calls"], stats["padded_rows"]) == (route.program_calls,
-                                                              route.padded_rows)
+    counters = ("program_calls", "padded_rows", "staged_uploads", "staged_bytes")
+    assert [stats[k] for k in counters] == [getattr(route, k) for k in counters]
     vols = np.random.default_rng(8).normal(size=(3, *INPUT, 1)).astype(np.float32)
     _post(base, vols)  # 3 rows on the bundle's sizes 1 and 2: two program calls
     _post(base, vols[0])
@@ -245,6 +246,7 @@ def test_http_stats_counts_requests_rows_and_program_calls(http):
     assert after["queue_wait_s"] >= 0.0
     assert after["program_calls"] - stats["program_calls"] == 3
     assert after["padded_rows"] == stats["padded_rows"]
+    assert [after[k] for k in counters[2:]] == [stats[k] for k in counters[2:]]
 
 
 def test_http_refuses_bad_bodies_and_stays_up(http):

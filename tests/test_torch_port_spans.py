@@ -8,7 +8,9 @@
   time, ``msl.route.upload``, ``msl.detect`` and ``msl.route.fetch``, nested
   in it, with ``msl.detect_objects`` inside ``msl.detect``; its counters
   ``program_calls`` and ``padded_rows`` count the chunks and the padding,
-  and lose no count to threads routing at once;
+  and lose no count to threads routing at once; on the CPU a chunk of any
+  host dtype takes one ``.to`` and nothing is staged (``staged_uploads``
+  and ``staged_bytes`` stay put);
 * an exported program holds no profiler node, and its bundle answers as
   the live detector does;
 * the epoch program's CPU path opens one ``msl.epoch`` a call, and the
@@ -92,10 +94,12 @@ def test_route_spans_and_counters(rows, batch_sizes, calls, padded):
     detector = Detector(SSD3DConfig.create(**SMALL), device="cpu", batch_sizes=batch_sizes)
     images = np.random.default_rng(rows).normal(size=(rows, 16, 16, 16, 1)).astype(np.float32)
     before = (route.program_calls, route.padded_rows)
+    staged = (route.staged_uploads, route.staged_bytes)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = detector.predict(images)
     assert out["boxes"].shape == (rows, 4, 6)
     assert (route.program_calls - before[0], route.padded_rows - before[1]) == (calls, padded)
+    assert (route.staged_uploads, route.staged_bytes) == staged
     events = _msl_events(prof)
     (whole,) = _named(events, "msl.route")
     for name in ROUTE:
@@ -121,6 +125,7 @@ def test_route_counters_hold_under_threads():
     threads, routes = 16, 100
     images = np.ones((3, 4), np.float32)
     before = (route.program_calls, route.padded_rows)
+    staged = (route.staged_uploads, route.staged_bytes)
 
     def work():
         for _ in range(routes):
@@ -136,6 +141,31 @@ def test_route_counters_hold_under_threads():
         sys.setswitchinterval(interval)
     assert (route.program_calls - before[0], route.padded_rows - before[1]) == (
         2 * threads * routes, threads * routes)
+    assert (route.staged_uploads, route.staged_bytes) == staged
+
+
+@pytest.mark.parametrize("host, served", [(np.float32, torch.bfloat16),
+                                           (np.float32, torch.float32),
+                                           (np.float64, torch.bfloat16),
+                                           (np.float16, torch.float32),
+                                           (np.int16, torch.bfloat16)])
+def test_route_on_the_cpu_takes_one_to_of_any_host_dtype(host, served):
+    """On the CPU a chunk goes in one ``.to(cpu, dtype)`` of the caller's
+    rows, the padded rows zero, whatever the host dtype; nothing is staged."""
+    images = (np.random.default_rng(5).normal(size=(3, 2, 5)) * 100).astype(host)
+    seen = []
+
+    def call(x):
+        seen.append(x.clone())
+        return {"s": x.float().sum((1, 2))}
+
+    staged = (route.staged_uploads, route.staged_bytes)
+    out = route(images, (4,), "cpu", served, call)
+    (x,) = seen
+    assert x.dtype == served and x.shape == (4, 2, 5)
+    assert torch.equal(x[:3], torch.from_numpy(images).to(served)) and not x[3].any()
+    np.testing.assert_array_equal(out["s"], x[:3].float().sum((1, 2)).numpy())
+    assert (route.staged_uploads, route.staged_bytes) == staged
 
 
 def test_exported_program_holds_no_profiler_node(tmp_path):
