@@ -39,17 +39,18 @@ from ..reference import train as ref_train
 ROUNDOFF_SHARE = 1e-3
 # the numbers compared, by the reading each is
 COMPARED = {"loss_gap": "loss_step1", "grad_gap": "grad_median", "change_gap": "change_worst"}
-LEAF_TO_DOUBLE = "base.features.3.conv2.weight"
 
 
-def break_state(new, before, faults):
+def break_state(new, before, faults, cfg: dict):
     """The faults the tests and calibration plant in a train step's result:
-    ``unchanged`` hands back the old state, ``double`` moves one leaf twice."""
+    ``unchanged`` hands back the old state, ``double`` moves one leaf twice
+    (the backbone family's ``DOUBLE_LEAF``)."""
     if "unchanged" in faults:
         return before
     if "double" in faults:
+        leaf = ref.family(cfg).DOUBLE_LEAF
         params = dict(new.params)
-        params[LEAF_TO_DOUBLE] = 2 * new.params[LEAF_TO_DOUBLE] - before.params[LEAF_TO_DOUBLE]
+        params[leaf] = 2 * new.params[leaf] - before.params[leaf]
         return new.replace(params=params)
     return new
 

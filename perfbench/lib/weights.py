@@ -1,18 +1,21 @@
 """Weights from the seed: a state dict in the reference repository's schema,
-made on the device in one draw.
+made on the device in one draw over every entry in the schema's order.
 
 Two schemes:
 
 * ``init``: the reference repository's start of training (torch's default
-  conv init, U(+-1/sqrt(fan_in)) weights and biases; BatchNorm at identity).
+  conv init, U(+-1/sqrt(fan_in)) weights and biases; the rescale factors at
+  20; each kind of the backbone family at its ``init`` value).
 * ``served``: a stand-in for trained weights, under which activations keep
   their scale through the tower and the heads give logits of a few units:
   convs U(+-sqrt(6/fan_in)) (variance 2 / fan_in), biases U(+-1/sqrt(fan_in)),
+  each kind of the family at its ``served`` value (``reference/mobilenet.py``:
   BatchNorm weight U(0.8, 1.2), bias U(-0.1, 0.1), running mean U(-0.1,
-  0.1) and variance U(0.8, 1.25).
+  0.1) and variance U(0.8, 1.25); ``reference/convnet.py``: PReLU slopes
+  U(0.15, 0.25)).
 
 Conv weights are stored in ``conv_dtype`` (the type they are served in);
-BatchNorm and the rest in float32. ``box_size_gain`` adds SIZE_VARIANCE x
+the rest in float32, counters as int64. ``box_size_gain`` adds SIZE_VARIANCE x
 ln(gain) to the loc heads' size biases, so that every decoded box is about
 ``gain`` times its prior's side.
 """
@@ -26,14 +29,11 @@ import torch
 from ..reference import boxes as bx
 from ..reference import ssd3d
 
-UNIFORM = {  # kind -> (low, high) before the conv's fan-in scaling
-    "bn_w": (0.8, 1.2), "bn_b": (-0.1, 0.1), "bn_mean": (-0.1, 0.1), "bn_var": (0.8, 1.25),
-}
-
 
 def make_state_dict(cfg: dict, seed: int, device, scheme: str, conv_dtype=torch.float32,
                     box_size_gain: float = 1.0) -> dict:
     specs = ssd3d.param_specs(cfg)
+    kinds = ssd3d.family(cfg).KINDS
     sizes = [math.prod(shape) for _, shape, _, _ in specs]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -51,14 +51,16 @@ def make_state_dict(cfg: dict, seed: int, device, scheme: str, conv_dtype=torch.
                 w[:, 3:] += bx.SIZE_VARIANCE * math.log(box_size_gain)
                 w = w.view(shape)
             out[name] = w.to(conv_dtype)
-        elif kind == "bn_count":
-            out[name] = torch.zeros((), dtype=torch.long, device=device)
         elif kind == "rescale":
             out[name] = torch.full(shape, 20.0, device=device)
-        elif scheme == "served":
-            lo, hi = UNIFORM[kind]
-            out[name] = lo + (hi - lo) * v
         else:
-            out[name] = torch.full(shape, 1.0 if kind in ("bn_w", "bn_var") else 0.0,
-                                   device=device)
+            init, served, role = kinds[kind]
+            value = served if scheme == "served" else init
+            if role == "counter":
+                out[name] = torch.full(shape, value, dtype=torch.long, device=device)
+            elif isinstance(value, tuple):
+                lo, hi = value
+                out[name] = lo + (hi - lo) * v
+            else:
+                out[name] = torch.full(shape, value, device=device)
     return out

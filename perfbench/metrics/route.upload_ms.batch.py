@@ -1,6 +1,7 @@
 """Host milliseconds a predict call inside the program's ``msl.route.upload``
-spans (the host cast of the float32 volumes and the pageable copy to the
-card), over the calls of the traced window."""
+spans (the host cast of the float32 volumes into a pinned buffer of the
+served type, and the one copy of it to the card that the span queues), over
+the calls of the traced window."""
 
 from perfbench.metrics import _spans
 

@@ -1,29 +1,47 @@
 """SSD3D written out in plain PyTorch: the benchmark's reference forward.
 
-A MobileNet-v1 tower of 3^3 convs (a stem, then depthwise-separable blocks)
-truncated after its last feature layer, and a 3^3 loc and class head on
-each feature layer (Medical-Image-Analysis-Laboratory/MSLesions3D,
-lesions3d/ssd3d.py and mobilenet.py). It reads a ``state_dict`` in that
-repository's schema, computes in float32 whatever dtype the weights are
-stored in, and imports nothing of the program under test.
+A backbone tower truncated after its last feature layer, and a 3^3 loc and
+class head on each feature layer (Medical-Image-Analysis-Laboratory/MSLesions3D,
+lesions3d/ssd3d.py). It reads a ``state_dict`` in that repository's schema,
+computes in float32 whatever dtype the weights are stored in, and imports
+nothing of the program under test.
 
+The tower is its family's: the module ``reference/<family>.py`` named by the
+first word of the configuration's ``base_network_config`` (``mobilenet`` ->
+``mobilenet.py``, ``convnet_maxpool_double`` -> ``convnet.py``), found by
+name as the harness finds traffic modules and metric readers, so that a
+family is added as one file. A family module gives:
+
+* ``tower_plan(cfg)``: [(kind, in channels, out channels, stride)] of the
+  truncated tower, max-pools included, from which ``boxes.fmap_dims`` and
+  ``boxes.priors`` take the maps' sizes;
+* ``tower_specs(cfg)``: [(name, shape, kind, fan_in)] of the tower's
+  state-dict entries, in the schema's order;
+* ``KINDS``: {kind: (value under "init", value under "served", role)} of the
+  kinds it adds beside the shared ``conv_w``, ``conv_b`` and ``rescale``; a
+  value is a constant or a (low, high) uniform draw, a role ``trained``,
+  ``statistic`` or ``counter``;
+* ``forward(sd, cfg, x, train, moved, dtype, generator)``: {feature layer:
+  map (B, C, D, H, W)} of ``x`` in ``dtype``; in training mode it writes the
+  moved statistics into ``moved`` and draws what it draws from
+  ``generator``;
+* ``DOUBLE_LEAF``: the leaf that the ``double`` fault moves twice.
+
+The heads, the rescale factors and the output layout are shared, here.
 Images are (B, D, H, W, C); locs come out (B, P, 6) and class logits
 (B, P, n_classes) in prior order (feature layer, then voxel in D, H, W
-order, then box). BatchNorm in eval mode uses the running statistics; in
-training mode the batch's mean and biased variance (the stem's as
-E[x^2] - E[x]^2, clamped at 0), and it hands back the moved running
-statistics (0.9 old + 0.1 batch).
+order, then box).
 """
 
 from __future__ import annotations
 
+import importlib
+from pathlib import Path
+
 import torch
 import torch.nn.functional as F
 
-STEM_CHANNELS = 32
-GROUPS = ((64, 1, 2), (128, 2, 2), (256, 2, 2), (512, 6, 2), (1024, 2, 1))
-BN_EPS = 1e-5
-BN_KEEP = 0.9
+SHARED_KINDS = {"conv_w": "trained", "conv_b": "trained", "rescale": "trained"}
 
 
 class float32_exact:
@@ -39,22 +57,22 @@ class float32_exact:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
 
 
+def family_name(cfg: dict) -> str:
+    return str(cfg["base_network_config"]).split("_")[0]
+
+
+def family(cfg: dict):
+    """The module of the configuration's backbone family."""
+    name = family_name(cfg)
+    if not (Path(__file__).parent / f"{name}.py").is_file():
+        raise FileNotFoundError(f"no reference for the backbone family {name!r} "
+                                "under perfbench/reference")
+    return importlib.import_module(f"{__package__}.{name}")
+
+
 def tower_plan(cfg: dict) -> list:
     """[(kind, in channels, out channels, stride)] of the truncated tower."""
-    width = float(cfg.get("width_mult", 1.0))
-    cube = len(set(cfg["input_size"])) == 1
-    last = max(int(k) for k in cfg["aspect_ratios"])
-    stem = int(STEM_CHANNELS * width)
-    plan = [("stem", int(cfg["input_channels"]), stem, (2, 2, 2) if cube else (1, 2, 2))]
-    cin = stem
-    for channels, repeats, stride in GROUPS:
-        for i in range(repeats):
-            if len(plan) - 1 == last:
-                return plan
-            cout = int(channels * width)
-            plan.append(("block", cin, cout, (stride,) * 3 if i == 0 else (1, 1, 1)))
-            cin = cout
-    return plan
+    return family(cfg).tower_plan(cfg)
 
 
 def feature_layers(cfg: dict) -> list:
@@ -65,29 +83,16 @@ def boxes_per_map(cfg: dict, layer: int) -> int:
     return len(cfg["aspect_ratios"][str(layer)]) + int(cfg["boxes_per_location"]) - 1
 
 
+def roles(cfg: dict) -> dict:
+    """{kind: role} of every kind of the configuration's state dict."""
+    return {**SHARED_KINDS, **{k: v[2] for k, v in family(cfg).KINDS.items()}}
+
+
 def param_specs(cfg: dict) -> list:
-    """[(name, shape, kind, fan_in)] of the state dict, in the schema's order.
-    Kinds: conv_w, conv_b, bn_w, bn_b, bn_mean, bn_var, bn_count, rescale."""
-    specs = []
-
-    def bn(prefix, c):
-        specs.extend([(f"{prefix}.weight", (c,), "bn_w", 0), (f"{prefix}.bias", (c,), "bn_b", 0),
-                      (f"{prefix}.running_mean", (c,), "bn_mean", 0),
-                      (f"{prefix}.running_var", (c,), "bn_var", 0),
-                      (f"{prefix}.num_batches_tracked", (), "bn_count", 0)])
-
-    plan = tower_plan(cfg)
-    for i, (kind, cin, cout, _) in enumerate(plan):
-        p = f"base.features.{i}"
-        if kind == "stem":
-            specs.append((f"{p}.0.weight", (cout, cin, 3, 3, 3), "conv_w", cin * 27))
-            bn(f"{p}.1", cout)
-        else:
-            specs.append((f"{p}.conv1.weight", (cin, 1, 3, 3, 3), "conv_w", 27))
-            bn(f"{p}.bn1", cin)
-            specs.append((f"{p}.conv2.weight", (cout, cin, 1, 1, 1), "conv_w", cin))
-            bn(f"{p}.bn2", cout)
-    channels = {i: cout for i, (_, _, cout, _) in enumerate(plan)}
+    """[(name, shape, kind, fan_in)] of the state dict, in the schema's order:
+    the tower's, then the heads' and the rescale factors."""
+    specs = list(family(cfg).tower_specs(cfg))
+    channels = {i: cout for i, (_, _, cout, _) in enumerate(tower_plan(cfg))}
     for head, per_box in (("loc_convs", 6), ("cl_convs", int(cfg["n_classes"]))):
         for j, layer in enumerate(feature_layers(cfg)):
             c, out = channels[layer], boxes_per_map(cfg, layer) * per_box
@@ -98,51 +103,17 @@ def param_specs(cfg: dict) -> list:
     return specs
 
 
-def _bn(x, sd, prefix, train, fast, moved):
-    w, b = sd[f"{prefix}.weight"].float(), sd[f"{prefix}.bias"].float()
-    shape = (1, -1, 1, 1, 1)
-    if not train:
-        mean, var = sd[f"{prefix}.running_mean"].float(), sd[f"{prefix}.running_var"].float()
-        return (x - mean.view(shape)) / torch.sqrt(var.view(shape) + BN_EPS) * w.view(shape) \
-            + b.view(shape)
-    dims = (0, 2, 3, 4)
-    mean = x.mean(dims)
-    if fast:
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
-    else:
-        var = ((x - mean.view(shape)) ** 2).mean(dims)
-    if moved is not None:
-        with torch.no_grad():
-            moved[f"{prefix}.running_mean"] = (BN_KEEP * sd[f"{prefix}.running_mean"].float()
-                                               + (1 - BN_KEEP) * mean)
-            moved[f"{prefix}.running_var"] = (BN_KEEP * sd[f"{prefix}.running_var"].float()
-                                              + (1 - BN_KEEP) * var)
-    return (x - mean.view(shape)) / torch.sqrt(var.view(shape) + BN_EPS) * w.view(shape) \
-        + b.view(shape)
-
-
 def forward(sd: dict, cfg: dict, images: torch.Tensor, train: bool = False,
-            moved: dict | None = None, dtype: torch.dtype = torch.float32):
+            moved: dict | None = None, dtype: torch.dtype = torch.float32,
+            generator: torch.Generator | None = None):
     """(locs (B, P, 6), logits (B, P, n_classes)) in float32. With ``train``
-    BatchNorm takes the batch statistics and, given ``moved``, writes the
-    moved running statistics into it. ``dtype`` other than float32 runs the
-    convs and keeps every activation in it (BatchNorm in float32, its output
-    rounded back), as a program served in that dtype does."""
+    the tower runs in training mode: given ``moved`` it writes the moved
+    statistics into it, and it draws from ``generator``. ``dtype`` other than
+    float32 runs the convs and keeps every activation in it (normalisation
+    in float32, its output rounded back), as a program served in that dtype
+    does."""
     x = images.to(dtype).permute(0, 4, 1, 2, 3)
-    wanted = set(feature_layers(cfg))
-    features = {}
-    for i, (kind, cin, _, stride) in enumerate(tower_plan(cfg)):
-        p = f"base.features.{i}"
-        if kind == "stem":
-            x = F.conv3d(x, sd[f"{p}.0.weight"].to(dtype), None, stride, 1)
-            x = torch.relu(_bn(x.float(), sd, f"{p}.1", train, True, moved).to(dtype))
-        else:
-            x = F.conv3d(x, sd[f"{p}.conv1.weight"].to(dtype), None, stride, 1, 1, cin)
-            x = torch.relu(_bn(x.float(), sd, f"{p}.bn1", train, False, moved).to(dtype))
-            x = F.conv3d(x, sd[f"{p}.conv2.weight"].to(dtype))
-            x = torch.relu(_bn(x.float(), sd, f"{p}.bn2", train, False, moved).to(dtype))
-        if i in wanted:
-            features[i] = x
+    features = family(cfg).forward(sd, cfg, x, train, moved, dtype, generator)
     b = images.shape[0]
     locs, logits = [], []
     for j, layer in enumerate(feature_layers(cfg)):

@@ -4,8 +4,9 @@ reference for the training cells.
 Augmentation (rot90 in each plane of equal sides, then flips and an
 isotropic zoom about the centre by linear interpolation), MultiBox matching
 with a soft band, the MultiBox loss with hard-negative mining, autograd's
-backward through :func:`..ssd3d.forward` in training mode, and Adam with L2
-decay added to the gradient, biases at twice the learning rate and a
+backward through :func:`..ssd3d.forward` in training mode (a backbone's
+dropout draws from the step's generator after the augmentation), and Adam
+with L2 decay added to the gradient, biases at twice the learning rate and a
 half-cosine schedule (Medical-Image-Analysis-Laboratory/MSLesions3D,
 lesions3d/ssd3d.py ``configure_optimizers`` and ``MultiBoxLoss``). The
 random draws are taken from a ``torch.Generator`` in the reference
@@ -177,16 +178,18 @@ def learning_rate(cfg: dict, count: int) -> float:
 
 
 class Trainer:
-    """The reference's training state: float32 parameters, BN statistics and
-    Adam's moments, by the state dict's names."""
+    """The reference's training state: float32 parameters (every kind that is
+    neither a statistic nor a counter), the statistics and Adam's moments,
+    by the state dict's names."""
 
     def __init__(self, cfg: dict, state_dict: dict, aug: dict, device):
         self.cfg, self.aug = cfg, aug
-        kinds = {name: kind for name, _, kind, _ in ssd3d.param_specs(cfg)}
+        roles = ssd3d.roles(cfg)
+        role = {name: roles[kind] for name, _, kind, _ in ssd3d.param_specs(cfg)}
         self.params = {n: v.detach().float().clone().to(device) for n, v in state_dict.items()
-                       if kinds[n] in ("conv_w", "conv_b", "bn_w", "bn_b", "rescale")}
+                       if role[n] not in ("statistic", "counter")}
         self.stats = {n: v.detach().float().clone().to(device) for n, v in state_dict.items()
-                      if kinds[n] in ("bn_mean", "bn_var")}
+                      if role[n] == "statistic"}
         self.mu = {n: torch.zeros_like(v) for n, v in self.params.items()}
         self.nu = {n: torch.zeros_like(v) for n, v in self.params.items()}
         self.count = 0
@@ -206,7 +209,7 @@ class Trainer:
         leaves = {n: p.clone().requires_grad_() for n, p in self.params.items()}
         moved = {}
         locs, logits = ssd3d.forward({**leaves, **self.stats}, cfg, images, train=True,
-                                     moved=moved)
+                                     moved=moved, generator=gen)
         total, conf, loc = multibox_loss(locs, logits, loc_t, cls_t, float(cfg["alpha"]))
         names = list(leaves)
         grads = torch.autograd.grad(total, [leaves[n] for n in names], allow_unused=True)

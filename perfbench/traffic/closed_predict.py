@@ -8,8 +8,9 @@ Parameters: ``batch``, ``pool`` (a multiple of ``batch``), ``batch_sizes``
 length at most), ``check_calls`` (calls of the window compared with the
 reference, drawn from the seed, besides the last call on each pool batch),
 ``ref_block`` (volumes a reference forward) and ``host_threads`` (torch's
-intra-op threads on the host, which cast each call's float32 volumes to the
-served type before the copy to the card).
+intra-op threads on the host, which cast each call's float32 volumes into a
+pinned buffer of the served type, whose one copy to the card the call then
+queues).
 """
 
 from __future__ import annotations
@@ -90,8 +91,10 @@ class Run:
         faults = self.cell.faults
         b = int(self.cell.params["batch"])
         calls, previous = 0, None
+        # ``stale`` needs a previous call to hand back, however short the window
+        least = 2 if "stale" in faults else 1
         t0 = time.perf_counter()
-        while calls == 0 or time.perf_counter() - t0 < seconds:
+        while calls < least or time.perf_counter() - t0 < seconds:
             which = calls % len(self.batches)
             with torch.profiler.record_function("perfbench.call"):
                 out = self.predict(self.batches[which])
@@ -169,9 +172,13 @@ class Run:
 
 def dw12_spans(model) -> None:
     """A ``perfbench.dw12`` range around the depthwise conv of blocks 1 and 2:
-    opened as the block starts, closed as its first BatchNorm does."""
+    opened as the block starts, closed as its first BatchNorm does. A block
+    with no ``bn1`` is no depthwise block (the ConvNet's towers have none)
+    and gets no range, so ``dw12_roofline.serve`` reads nothing there."""
     for i in (1, 2):
         block, open_range = model.base.features[i], {}
+        if not hasattr(block, "bn1"):
+            continue
 
         def start(module, args, open_range=open_range):
             open_range["range"] = torch.profiler.record_function("perfbench.dw12")

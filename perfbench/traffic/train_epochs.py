@@ -99,7 +99,7 @@ class Run:
         before = self.state
         self.state, m = self.fn(self.state, self.data, idx_matrix, self.generator)
         if faults:
-            self.state = train_check.break_state(self.state, before, faults)
+            self.state = train_check.break_state(self.state, before, faults, self.cfg)
         return m["total_loss"]
 
     @staticmethod
