@@ -69,6 +69,7 @@ from ..parallel.collectives import (
     scatter_channels,
     under_split,
 )
+from ..utils.profiling import phases
 
 INIT_SCHEMES = ("torch", "flax", "kaiming_relu")
 # standard deviation of a standard normal truncated to (-2, 2)
@@ -602,6 +603,11 @@ class ConvNormActBlock(nn.Module):
     together drop what one device drops on the global batch. Depth-split,
     the mask is drawn for the whole depth and the rank keeps its slab, and
     the norm's per-sample sums run over the spatial group.
+
+    The forward is two phases (``utils.profiling.phases``):
+    ``msl.convnet.conv``, then ``msl.convnet.norm_act`` (the norm, dropout
+    and PReLU), timed inside a CUDA graph's replay and spans in an eager
+    trace.
     """
 
     def __init__(self, in_features: int, features: int, strides=1, dropout_rate: float = 0.1,
@@ -618,7 +624,12 @@ class ConvNormActBlock(nn.Module):
             self.adn["A"].weight.fill_(self.prelu_init)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = conv3d(self.conv, x)
+        with phases("msl.convnet.conv") as phase:
+            x = conv3d(self.conv, x)
+            phase.next("msl.convnet.norm_act")
+            return self._norm_act(x, generator)
+
+    def _norm_act(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
         x32 = x.float()
         depth = current_depth()
         if depth is None:

@@ -32,6 +32,17 @@ from the host where a stepped step is thousands.
   later call writes. The copy in runs under the span ``msl.epoch.state_in``,
   the clone out and the metrics' split under ``msl.epoch.state_out``
   (``utils.profiling.span``); the replays run none.
+* The capture marks the step's phases (``utils.profiling.marking``): the
+  timing events that the step's ``phases`` record (the train step's
+  ``msl.step.forward``, ``.backward`` and ``.update``, a ConvNet block's
+  ``msl.convnet.conv`` and ``.norm_act``) and a pair around the whole
+  captured body (``msl.epoch.replay``) are event-record nodes of the graph,
+  which every replay records again at no launch. While a profiler records,
+  a call first reads the previous call's last replay where its last event
+  is done (``Event.query``, no wait), and adds each phase's elapsed device
+  ms to ``marked_ms`` and one to ``sampled``; :meth:`GraphedEpoch.phase_ms`
+  gives the ms a sampled step. With no profiler recording a call reads
+  nothing.
 
 Nothing here falls back to stepping: a capture or replay that fails raises.
 """
@@ -44,7 +55,7 @@ import time
 import torch
 
 from ..parallel.mesh import tree_rebuild, tree_tensors
-from ..utils.profiling import span
+from ..utils.profiling import marking, phases, span
 from .state import TrainState
 
 # the per-step metrics the epoch keeps: the keys of the JAX package's scan body
@@ -89,19 +100,37 @@ class _Capture:
     state: TrainState  # the static input state, written back by every replay
     idx: torch.Tensor  # (B,) int64, the rows replay i gathers
     metrics: torch.Tensor  # (5,) float32, replay i's kept metrics
+    marks: list  # (phase, start event, end event) of the step, recorded by every replay
+    replayed: bool = False  # the events hold a replay's times, or will once it ends
 
 
 class GraphedEpoch:
     """fn(state, data, idx_matrix, generator) -> (state, metrics) on the card,
     replaying ``step`` (a gathered train step, fn(state, data, idx,
     generator)) captured once. ``captures`` counts the captures made and
-    ``capture_s`` holds the seconds of the last, warm-up included."""
+    ``capture_s`` holds the seconds of the last, warm-up included;
+    ``marked_ms`` sums each marked phase's device ms over the ``sampled``
+    replays (read while a profiler records)."""
 
     def __init__(self, step):
         self.step = step
         self.captured: _Capture | None = None
         self.captures = 0
         self.capture_s = 0.0
+        self.marked_ms: dict = {}
+        self.sampled = 0
+
+    def phase_ms(self) -> dict:
+        """{phase: device ms a sampled replay}; empty before any sample."""
+        return {k: v / self.sampled for k, v in self.marked_ms.items()} if self.sampled else {}
+
+    def _sample(self, cap: _Capture) -> None:
+        """Adds the last replay's phases to the counters, where it has ended."""
+        if not (cap.replayed and cap.marks and cap.marks[-1][2].query()):
+            return
+        for name, start, end in cap.marks:
+            self.marked_ms[name] = self.marked_ms.get(name, 0.0) + start.elapsed_time(end)
+        self.sampled += 1
 
     def __call__(self, state: TrainState, data: dict, idx_matrix, generator=None):
         device = state.device
@@ -112,6 +141,8 @@ class GraphedEpoch:
         if cap is None or cap.key != key or cap.generator is not generator:
             self.captured = None  # the old graph's pool goes before the new one is made
             cap = self.captured = self._capture(state, data, batch, generator, key)
+        elif torch._C._autograd._profiler_enabled():
+            self._sample(cap)
         with span("msl.epoch.state_in"):
             torch._foreach_copy_(tree_tensors(cap.state), tree_tensors(state))
         rows = torch.empty((n, len(EPOCH_METRICS)), dtype=torch.float32, device=device)
@@ -119,6 +150,7 @@ class GraphedEpoch:
             cap.idx.copy_(idx_matrix[i])
             cap.graph.replay()
             rows[i].copy_(cap.metrics)
+        cap.replayed = cap.replayed or n > 0
         with span("msl.epoch.state_out"):
             return _cloned(cap.state), split_metrics(rows)
 
@@ -140,11 +172,12 @@ class GraphedEpoch:
             torch.cuda.current_stream(device).wait_stream(side)
             if generator is not None:
                 generator.set_state(saved)
-            with torch.cuda.graph(graph):
+            marks = []
+            with torch.cuda.graph(graph), marking(marks), phases("msl.epoch.replay"):
                 new, m = self.step(static, data, idx, generator)
                 torch._foreach_copy_(tree_tensors(static), tree_tensors(new))
                 metrics = stack_metrics(m)
             torch.cuda.synchronize(device)
         self.captures += 1
         self.capture_s = time.perf_counter() - t0
-        return _Capture(key, generator, graph, static, idx, metrics)
+        return _Capture(key, generator, graph, static, idx, metrics, marks)

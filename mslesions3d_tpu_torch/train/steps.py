@@ -73,7 +73,7 @@ from ..ops.nms import detect_objects
 from ..parallel.collectives import all_reduce_sum, data_parallel, exchange_rows, gather_rows
 from ..parallel.mesh import SpatialMesh, TensorMesh, local_row_runs, rows_split
 from ..parallel.spatial import depth_slab
-from ..utils.profiling import span
+from ..utils.profiling import phases, span
 from .graphs import GraphedEpoch, split_metrics, stack_metrics
 from .state import TrainState
 
@@ -151,6 +151,14 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
     augmentation, the JAX package's metric), nonfinite, nonfinite_streak and
     grad_norm (over every parameter).
 
+    The step is marked in phases (``utils.profiling.phases``): from its
+    start (the batch's draws and augmentation included) to each
+    micro-batch's loss ``msl.step.forward``, to its gradients
+    ``msl.step.backward`` (the last one's through the gradients' sum over
+    the mesh), and to the step's end ``msl.step.update`` (the optimizer,
+    EMA, non-finite select, metrics and any detections): timed inside a
+    CUDA graph's replay (``train/graphs.py``), spans in an eager trace.
+
     With a ``mesh`` the batch is this rank's rows of a global batch
     (``parallel.shard_batch``: with ``grad_accum`` its share of every
     micro-batch; under a data x spatial mesh see the module docstring) and
@@ -176,6 +184,10 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         return conf_loss + config.alpha * loc_loss, conf_loss, loc_loss, locs, scores
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
+        with phases("msl.step.forward") as phase:
+            return phased_step(state, batch, generator, phase)
+
+    def phased_step(state: TrainState, batch: dict, generator, phase):
         device = state.device
         priors = priors_on(device)
         batch = _batch_on(batch, device)
@@ -222,9 +234,12 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         gsum, losses, locs_out, scores_out = None, [], [], []
         with data_parallel(mesh, rows=rows is not None):
             for i in range(grad_accum):
+                if i:
+                    phase.next("msl.step.forward")
                 mb = {k: v[i * m:(i + 1) * m] for k, v in full.items()}
                 total, conf, loc, locs, scores = loss_fn(leaves, stats, mb, priors, generator,
                                                          rows)
+                phase.next("msl.step.backward")
                 g = torch.autograd.grad(total if scale is None else total * scale,
                                         [leaves[n] for n in names], allow_unused=True)
                 g = [torch.zeros_like(leaves[n]) if gi is None else gi for n, gi in zip(names, g)]
@@ -236,6 +251,7 @@ def make_train_step(config: SSD3DConfig, model: SSD3D, priors_center,
         # this rank's shares of the losses and gradients -> the global batch's
         losses, n_pos = all_reduce_sum([torch.stack(losses), box_mask.sum().float()], rows)
         grads = dict(zip(names, all_reduce_sum(grads, None if mesh is None else mesh.replicas)))
+        phase.next("msl.step.update")
         total, conf_loss, loc_loss = losses[0] if grad_accum == 1 else losses.mean(0)
 
         updated = state.apply_gradients(grads, new_batch_stats=stats)

@@ -9,7 +9,10 @@ Usage:
 
 ``time_fn`` and ``trace`` are the JAX package's. :func:`span` opens the
 program's own named ranges (``msl.route``, ``msl.epoch``, ...) while a
-profiler records. The rest reads the device's own clock from a
+profiler records. :func:`phases` marks consecutive phases of device work
+(the train step's, a ConvNet block's) where a CUDA graph replays them:
+timing events captured into the graph under :func:`marking`, spans on the
+eager path. The rest reads the device's own clock from a
 ``torch.profiler`` trace:
 :func:`device_ms` (the kernels one call launches, in total and by kernel
 function), :func:`device_ms_rounds`, :func:`device_busy_ms` (the union of
@@ -64,6 +67,100 @@ def span(name: str):
     if torch._C._autograd._profiler_enabled():
         return torch._C._profiler._RecordFunctionFast(name)
     return _NO_SPAN
+
+
+# the list a capture under way records its phases into (``marking``), else None
+_MARKS = None
+
+
+@contextlib.contextmanager
+def marking(marks: list):
+    """Inside the block (a CUDA graph's capture) :func:`phases` records timing
+    events on the current stream, captured as event-record nodes that every
+    replay records again, and appends (name, start event, end event) to
+    ``marks`` as each phase ends."""
+    global _MARKS
+    saved, _MARKS = _MARKS, marks
+    try:
+        yield
+    finally:
+        _MARKS = saved
+
+
+def _recorded_event() -> torch.cuda.Event:
+    event = torch.cuda.Event(enable_timing=True, external=True)
+    event.record()
+    return event
+
+
+class _Phases:
+    """Consecutive phases, the first opened on entry, each ``next(name)``
+    ending the phase open and opening ``name``, the last ended on exit.
+    Under ``marking`` a boundary is one event, the end of a phase and the
+    start of the next; else each phase is a ``span``."""
+
+    def __init__(self, name: str, marks: list | None):
+        self.name, self.marks = name, marks
+
+    def __enter__(self):
+        if self.marks is None:
+            self._open_span()
+        else:
+            self.start = _recorded_event()
+        return self
+
+    def next(self, name: str) -> None:
+        self._end()
+        self.name = name
+        if self.marks is None:
+            self._open_span()
+
+    def __exit__(self, *exc):
+        self._end()
+
+    def _open_span(self):
+        self.range = torch._C._profiler._RecordFunctionFast(self.name)
+        self.range.__enter__()
+
+    def _end(self):
+        if self.marks is None:
+            self.range.__exit__(None, None, None)
+        else:
+            end = _recorded_event()
+            self.marks.append((self.name, self.start, end))
+            self.start = end
+
+
+class _NoPhases:
+    def __enter__(self):
+        return self
+
+    def next(self, name: str) -> None:
+        pass
+
+    def __exit__(self, *exc):
+        pass
+
+
+_NO_PHASES = _NoPhases()
+
+
+def phases(first: str):
+    """``with phases(first) as p: ...; p.next(name); ...``: consecutive
+    phases of device work, timed where a CUDA graph replays them and seen in
+    an eager trace.
+
+    While a capture marks (:func:`marking`) the boundaries are timing events
+    captured into the graph (no launch: a replay records them with its
+    kernels, and the reader takes their elapsed times once the replay has
+    ended); while a profiler records, each phase is a :func:`span`; else
+    the shared null object, so an eager step with no profiler records no
+    event and opens no range."""
+    if _MARKS is not None:
+        return _Phases(first, _MARKS)
+    if torch._C._autograd._profiler_enabled():
+        return _Phases(first, None)
+    return _NO_PHASES
 
 
 def time_fn(fn, args=(), kwargs=None, iters: int = 20, warmup: int = 3) -> float:

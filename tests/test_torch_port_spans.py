@@ -15,7 +15,8 @@
   the live detector does;
 * the epoch program's CPU path opens one ``msl.epoch`` a call, and the
   train step it runs (the step the card captures into a CUDA graph) opens
-  none;
+  its phases alone, ``msl.step.forward``, ``.backward`` and ``.update``
+  (``tests/test_torch_port_step_markers.py``);
 * ``RequestBatcher``'s ``requests``, ``rows`` and ``queue_wait_s`` add up
   over coalesced submits;
 * the benchmark's readers of the spans (``perfbench/metrics``), on a
@@ -204,11 +205,15 @@ def test_cpu_epoch_opens_one_span_a_call():
         state, m = epoch(state, data, idx)
         state, _ = epoch(state, data, idx)
     assert m["total_loss"].shape == (2,)
-    events = _msl_events(prof)
-    assert [e.name for e in events] == ["msl.epoch", "msl.epoch"]
+    events = sorted(_msl_events(prof), key=lambda e: (e.time_range.start, -e.time_range.end))
+    phases = ["msl.step.forward", "msl.step.backward", "msl.step.update"]
+    assert [e.name for e in events] == (["msl.epoch"] + phases * 2) * 2
+    calls = _named(events, "msl.epoch")
+    assert all(any(_inside(e, call) for call in calls) for e in events)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(state, data, idx[0])
-    assert _msl_events(prof) == []  # nothing inside the step a graph captures
+    # the step a graph captures opens its phases alone, no span of the epoch
+    assert [e.name for e in _msl_events(prof)] == phases
 
 
 def test_request_batcher_counters_add_up():
