@@ -8,8 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero and prints no result line):
 
 1. device: the card's name and power limit; TF32 off for convs and matmuls.
-2. build: nvcc builds every CUDA kernel of the served paths from ``csrc/``
-   (K1 NMS, K2 fused depthwise, K3 fused tail, Q1 int8 conv), all at once, and
+2. build: nvcc builds every CUDA kernel of the port from ``csrc/`` (K1 NMS,
+   K2 fused depthwise, K3 fused tail, Q1 int8 conv, K4 the training
+   backward's weight gradient of the depthwise convs and the stem), all at once, and
    ptxas's register, shared-memory and spill lines are printed; the tensor-
    core instructions (HMMA) in the built K3 library's SASS are counted per
    kernel function (cuobjdump -sass): the bf16 product must reach them.
@@ -26,7 +27,11 @@ Phases (any failure exits non-zero and prints no result line):
    against its plain version on the headline tail (layers 4-7) and the real
    layer-3 output at batch 8 and 32, in bf16, at batch 8 once more with
    the BN statistics calibrated on seeded volumes (maps of unit scale), and
-   on a seeded 24^3 input, which takes K3's per-block variant.
+   on a seeded 24^3 input, which takes K3's per-block variant. K4 against
+   its plain version at a chunk of each of its convs in the benchmark's
+   recipe cell (the stem and blocks 1-7 at 64^3, batch 64), float32 and
+   bf16, within 64 float32 eps of the sum of the products' magnitudes, and
+   a second launch bit-equal.
 4. the slices, each with the launch counts set to 0 just before it and read
    just after: a ``Detector`` at the bench's headline configuration (96^3,
    bf16, full width, random weights from a seed) serves requests of 1, 3
@@ -46,8 +51,9 @@ Phases (any failure exits non-zero and prints no result line):
    width, lr 1e-3, soft matching [0.1, 0.2], flips and rot90 on the card):
    a ``TrainState`` from seed 0 takes 20 steps at batch 8 on a seeded batch
    (randn volumes with two painted cubes; every loss finite, the last 5
-   below the first 5) and 10 at batch 64, with no kernel launched by a
-   plain train step; then the ``with_detections`` train step and the eval
+   below the first 5) and 10 at batch 64, with no K1-K3 launched by a
+   plain train step and K4 once a chunk of the stem and the depthwise convs
+   (8 a step at batch 8, 23 at 64); then the ``with_detections`` train step and the eval
    step, also at min_score 0.05 so that some candidates pass (K1 must
    launch; their detections equal the plain NMS's on the same locs and
    scores, taken from the model's forward hook), and the eval step with
@@ -241,7 +247,9 @@ Phases (any failure exits non-zero and prints no result line):
    K2 and K3 beside their plain versions and bounds (and K2 at layers
    3/5/7 at batch 8 and layer 3 at batch 32 beside the cuDNN conv + BN +
    ReLU it replaces, its first version (the direct variant) and one
-   F.conv3d with the BN folded in), each as device
+   F.conv3d with the BN folded in), K4 at each of its convs of the recipe
+   cell (a step's chunks a call, float32) beside its byte bound, its plain
+   version and cuDNN's weight gradient, each as device
    time (torch.profiler; a kernel's the median of 3 rounds, beside the card's
    SM clock) and per call (CUDA events), the device time split
    by kernel function (K1's mask and walk launches, K3's kernel) and K3's
@@ -302,6 +310,7 @@ from mslesions3d_tpu_torch.kernels.depthwise import (
     plan_depthwise,
 )
 from mslesions3d_tpu_torch import kernels, quant
+from mslesions3d_tpu_torch.kernels.dw_wgrad import depthwise_wgrad, depthwise_wgrad_cuda
 from mslesions3d_tpu_torch.kernels.nms import greedy_nms, greedy_nms_cuda, plan_nms
 from mslesions3d_tpu_torch.kernels.qconv import (
     plan_qconv,
@@ -390,7 +399,7 @@ FLAG_SETTINGS = {
     "use_pallas_tail": dict(use_pallas_tail=True),
     "both": dict(use_pallas=True, use_pallas_tail=True),
 }
-KERNELS = ("nms", "depthwise", "tail", "qconv")
+KERNELS = ("nms", "depthwise", "tail", "qconv", "dw_wgrad")
 # K1 past the warp walk: the 96^3 model's every prior (top_k >= 395), and the
 # first K past what one staged word of the wide walk holds (plan_nms)
 WIDE_K, FAR_K = 3942, 28545
@@ -399,6 +408,18 @@ TRAIN = dict(n_classes=2, input_channels=1, input_size=(64, 64, 64), dtype="bflo
              threshold=[0.1, 0.2])
 TRAIN_AUGMENT = dict(flip_axes=(0, 1, 2), rot90_planes=((1, 2),))
 TRAIN_BOXES = ((0.2, 0.2, 0.2, 0.5, 0.5, 0.5), (0.6, 0.6, 0.6, 0.8, 0.8, 0.8))
+# K4: each 3^3 conv of one input channel a group in the benchmark's recipe
+# cell (64^3, batch 64, full width): x (N, CX, D, H, W), output channels,
+# stride (padding 1); a launch a chunk of the training backward
+# (models.layers._chunks), 23 a step
+DW_WGRAD_CONVS = {
+    "stem": ((64, 1, 64, 64, 64), 32, 2), "block1": ((64, 32, 32, 32, 32), 32, 2),
+    "block2": ((64, 64, 16, 16, 16), 64, 2), "block3": ((64, 128, 8, 8, 8), 128, 1),
+    "block4": ((64, 128, 8, 8, 8), 128, 2), "block5": ((64, 256, 4, 4, 4), 256, 1),
+    "block6": ((64, 256, 4, 4, 4), 256, 2), "block7": ((64, 512, 2, 2, 2), 512, 1)}
+# K4 against its plain version: within 64 float32 eps of the sum of the
+# products' magnitudes (tests/test_torch_gpu_dw_wgrad.py sets out why)
+DW_WGRAD_BOUND_EPS = 64 * 2.0 ** -23
 # the JAX package's 4k headline recipe (cli/recipe.py): its dataset cut to
 # 40 images, its training flags cut to 24 steps (6 epochs of 4), full
 # width, float32; scored as the recipe scores
@@ -766,6 +787,82 @@ def tail_bound(x, layers, emit):
 
 
 @torch.no_grad()
+# ---------------------------------------------------------------- K4
+def dw_wgrad_operands(name, dtype, batch=None, seed=0):
+    """Seeded x and gz of a K4 conv of the recipe cell (at ``batch`` samples,
+    by default the cell's 64), in channels_last_3d, and the training
+    backward's chunks of them."""
+    (n, cx, *spatial), c, stride = DW_WGRAD_CONVS[name]
+    n = batch or n
+    out = [(v - 1) // stride + 1 for v in spatial]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fmt = torch.channels_last_3d
+    x = torch.randn((n, cx, *spatial), generator=gen, device="cuda").to(dtype)
+    gz = torch.randn((n, c, *out), generator=gen, device="cuda").to(dtype)
+    chunks = model_layers._chunks(n, max(x[0].numel(), gz[0].numel()))
+    return x.contiguous(memory_format=fmt), gz.contiguous(memory_format=fmt), chunks
+
+
+def dw_wgrad_launches(batch: int) -> int:
+    """K4's launches a train step at ``batch``: a chunk of each conv."""
+    total = 0
+    for (_, cx, *spatial), c, stride in DW_WGRAD_CONVS.values():
+        out = [(v - 1) // stride + 1 for v in spatial]
+        total += len(model_layers._chunks(batch, max(cx * math.prod(spatial),
+                                                     c * math.prod(out))))
+    return total
+
+
+def dw_wgrad_step(name, x, gz, chunks, kind):
+    """A step's weight gradient of one K4 conv, a call a chunk, added into one
+    float32 grad_w: by K4 ("kernel"), its plain version ("plain") or
+    ``aten.convolution_backward``'s weight half alone ("library", cuDNN:
+    what the port called before K4)."""
+    _, c, stride = DW_WGRAD_CONVS[name]
+    s3, p3 = [stride] * 3, [1, 1, 1]
+    grad_w = torch.zeros((c, 1, 3, 3, 3), device="cuda")
+    weight = torch.zeros((c, 1, 3, 3, 3), dtype=x.dtype, device="cuda")
+
+    def run():
+        for sl in chunks:
+            if kind == "kernel":
+                depthwise_wgrad_cuda(x[sl], gz[sl], grad_w, s3, p3)
+            elif kind == "plain":
+                grad_w.add_(depthwise_wgrad(x[sl], gz[sl], s3, p3))
+            else:
+                torch.ops.aten.convolution_backward(gz[sl], x[sl], weight, None, s3, p3,
+                                                    [1, 1, 1], False, [0, 0, 0], x.shape[1],
+                                                    [False, True, False])
+        return grad_w
+    return run
+
+
+def compare_dw_wgrad(name, dtype) -> float:
+    """K4 and its plain version on the same card tensors, at the first chunk
+    shape of a conv of the recipe cell; a second launch must be bit-equal.
+    Returns the largest error in units of the bound."""
+    x, gz, chunks = dw_wgrad_operands(name, dtype)
+    x, gz = x[chunks[0]], gz[chunks[0]]
+    _, c, stride = DW_WGRAD_CONVS[name]
+    s3, p3 = (stride,) * 3, (1, 1, 1)
+    runs = []
+    for _ in range(2):
+        grad_w = torch.zeros((c, 1, 3, 3, 3), device="cuda")
+        depthwise_wgrad_cuda(x, gz, grad_w, s3, p3)
+        runs.append(grad_w)
+    torch.cuda.synchronize()
+    plain = depthwise_wgrad(x, gz, s3, p3).double()
+    magnitude = depthwise_wgrad(x.float().abs(), gz.float().abs(), s3, p3).double()
+    ratio = float(((runs[0].double() - plain).abs() / (DW_WGRAD_BOUND_EPS * magnitude)).max())
+    repeat = torch.equal(runs[0], runs[1])
+    log(f"K4 vs plain [{name}] chunk x {tuple(x.shape)}, gz {tuple(gz.shape)} {str(dtype)[6:]}: "
+        f"largest error {ratio:.4f} of the bound (64 float32 eps of the sum of the products' "
+        f"magnitudes); a second launch bit-equal: {repeat}")
+    check(ratio <= 1.0, f"K4 disagrees with its plain version on {name} ({str(dtype)[6:]})")
+    check(repeat, f"two K4 launches on {name} ({str(dtype)[6:]}) are not bit-equal")
+    return ratio
+
+
 def calibrate_bn(model, x) -> None:
     """Set every BN's running statistics of the tower to the batch statistics
     of its input on x, layer by layer, as training would leave them, so the
@@ -971,15 +1068,17 @@ def drive_training(card, counters) -> dict:
 
     for c in counters:
         c.launches = 0
-    losses, peak = {}, {}
+    losses, peak, k4 = {}, {}, {}
     for b, n in ((8, 20), (64, 10)):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = []
+        depthwise_wgrad_cuda.launches = 0
         for _ in range(n):
             state, m = step(state, batches[b], gen)
             out.append(m["total_loss"])
         losses[b] = torch.stack(out).float().cpu()
+        k4[b] = depthwise_wgrad_cuda.launches / n
         peak[b] = torch.cuda.max_memory_allocated()
         log(f"{n} train steps at batch {b} in {time.perf_counter() - t0:.2f} s (the first "
             f"includes warm-up); losses {[round(float(v), 4) for v in losses[b]]}; peak memory "
@@ -989,7 +1088,13 @@ def drive_training(card, counters) -> dict:
     log(f"batch 8, mean loss of steps 1-5 {first:.4f}, of steps 16-20 {last:.4f}")
     check(last < first, "the loss did not fall over 20 steps on the repeated batch")
     in_train = [c.launches for c in counters]
-    check(in_train == [0, 0, 0], f"a plain train step launched a kernel: {in_train}")
+    check(in_train == [0, 0, 0], f"a plain train step launched K1, K2 or K3: {in_train}")
+    # K4 takes the weight gradient of the stem and the 7 depthwise convs, a
+    # launch a chunk of samples: 8 a step at batch 8, 23 at 64
+    k4_expected = {b: dw_wgrad_launches(b) for b in k4}
+    log(f"K4 launches a plain train step: {k4} (expected {k4_expected})")
+    check(k4 == k4_expected and k4[64] == 23, f"K4 launched {k4} times a train step, not "
+          f"{k4_expected}")
     check(int(state.step) == int(state.opt_state.count) == 30, "the step count is not 30")
 
     # the eval step once more at min_score 0.05: after 31 steps no candidate
@@ -1059,7 +1164,8 @@ def drive_training(card, counters) -> dict:
     log(f"training phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "k1_metric": k1_metric, "k1_eval": k1_eval,
             "flagged": flagged, "dw_check": dw_check, "tail_check": tail_check, "step": step, "state": state, "batches": batches, "gen": gen,
-            "step_ms": timings, "eval_ms": float(np.median(eval_ms)), "peak": peak}
+            "step_ms": timings, "eval_ms": float(np.median(eval_ms)), "peak": peak,
+            "k4": k4}
 
 
 def drive_training_entry(card, counters, tmp: Path) -> dict:
@@ -3983,6 +4089,11 @@ def main() -> int:
               "the 24^3 input should take K3's per-block variant")
         compare_tail("24^3, per-block variant", big, tail_layers, (1, 3))
 
+        # K4 at a chunk of each conv of the recipe cell, float32 (the cell's) and bf16
+        dw_wgrad_err = max(compare_dw_wgrad(name, dtype)
+                           for dtype in (torch.float32, torch.bfloat16)
+                           for name in DW_WGRAD_CONVS)
+
     # 4. the slices
     host_rng = np.random.default_rng(1)
     requests = [host_rng.standard_normal((n, *config.input_size, 1), dtype=np.float32)
@@ -4177,10 +4288,23 @@ def main() -> int:
                    *tail_bound(big, tail_layers, (1, 3)),
                    kernel=(partial(fused_tail_cuda, big, tail_layers, (1, 3)), 20),
                    plain=(partial(tail_reference, big, tail_layers, (1, 3)), 5))
+    # K4 at each conv of the recipe cell, float32: a call is the conv's step,
+    # every chunk; cuDNN's weight half (what the port called before K4) as
+    # the yardstick
+    with torch.inference_mode():
+        for name, (shape, c, stride) in DW_WGRAD_CONVS.items():
+            x, gz, chunks = dw_wgrad_operands(name, torch.float32, seed=1)
+            nbytes = (x.numel() + gz.numel()) * x.element_size()
+            time_calls(f"K4 {name} {tuple(shape)} float32", *bound({}, nbytes),
+                       kernel=(dw_wgrad_step(name, x, gz, chunks, "kernel"), 20),
+                       plain=(dw_wgrad_step(name, x, gz, chunks, "plain"), 2),
+                       library=(dw_wgrad_step(name, x, gz, chunks, "library"), 3))
     log("no PyTorch call computes 3D greedy NMS or a chain of depthwise-separable blocks: "
         "library_ms is null for K1 and K3. K2's library_ms is one F.conv3d (cuDNN) with the BN "
         "folded into its weight and bias, on the same channels_last_3d tensors: it omits the "
-        "ReLU and is not bit-equal, a yardstick the port never calls")
+        "ReLU and is not bit-equal, a yardstick the port never calls. K4's is "
+        "aten.convolution_backward's weight half alone on the same chunks, which the training "
+        "backward called for these convs before K4")
 
     # three rounds over the four settings, each round in another order: the
     # spread between rounds is part of the result
@@ -4444,6 +4568,45 @@ def main() -> int:
                  "18 launches: stem, 7 depthwise, 7 pointwise, 3 fused heads)",
     })
     kernels[3]["launches_data_parallel"] = dp["q1"]
+    k4_rows = {name: timed[f"K4 {name} {tuple(shape)} float32"]
+               for name, (shape, _, _) in DW_WGRAD_CONVS.items()}
+    k4_step = {field: sum(t[field] for t in k4_rows.values())
+               for field in ("kernel_ms", "kernel_call_ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"K4 a step of the recipe cell (64^3, batch 64, float32, {dw_wgrad_launches(64)} "
+        f"launches): kernel {k4_step['kernel_ms']:.4f} ms device time, bound "
+        f"{k4_step['bound_ms']:.5f} ms by bytes "
+        f"({100 * k4_step['bound_ms'] / k4_step['kernel_ms']:.1f}%), "
+        f"plain {k4_step['plain_ms']:.3f} ms, cuDNN's weight half {k4_step['library_ms']:.3f} ms; "
+        + ", ".join(f"{name} {t['kernel_ms']:.4f} / {t['bound_ms']:.5f} / {t['library_ms']:.3f}"
+                    for name, t in k4_rows.items()) + f" (kernel / bound / cuDNN) [{card}]")
+    kernels.append({
+        "name": "depthwise_wgrad",
+        "route": "cuda",
+        "source": "mslesions3d_tpu_torch/csrc/dw_wgrad.cu",
+        "replaces": None,
+        "tpu_kernel": False,
+        "replaces_what": "no TPU kernel (the JAX package leaves this gradient to XLA); in the "
+                         "port the weight half of aten.convolution_backward (cuDNN's "
+                         "wgrad2d_grouped_direct) for each 3^3 conv of one input channel a "
+                         "group: the 7 depthwise convs and the stem",
+        "launches": train["k4"][64],
+        "launches_training_path": train["k4"],
+        "max_err_of_bound": dw_wgrad_err,
+        "repeats_bitwise": True,
+        "ms": k4_step["kernel_ms"],
+        "call_ms": k4_step["kernel_call_ms"],
+        "plain_ms": k4_step["plain_ms"],
+        "bound_ms": k4_step["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k4_step["library_ms"],
+        "library": "aten.convolution_backward, weight half alone (cuDNN), on the same chunks",
+        "by_conv": {name: {"ms": t["kernel_ms"], "call_ms": t["kernel_call_ms"],
+                           "rounds_ms": t["kernel_rounds_ms"], "split": t["split"],
+                           "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                           "library_ms": t["library_ms"]} for name, t in k4_rows.items()},
+        "shape": "a step of the benchmark's recipe cell (64^3, batch 64, float32): the stem and "
+                 "the 7 depthwise convs, a launch a chunk (sums over the 23 launches)",
+    })
     # the spatial path (phase 4h): launches by run, per rank
     kernels[0]["launches_spatial"] = spatial["k1"]
     kernels[1]["launches_spatial"] = spatial["k2"]

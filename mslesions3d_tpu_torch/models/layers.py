@@ -52,6 +52,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.depthwise import fold_bn, fused_depthwise_bn_relu_cuda
+from ..kernels.dw_wgrad import depthwise_wgrad_cuda
 from ..parallel.collectives import (
     all_reduce_sum,
     channel_slice,
@@ -325,11 +326,15 @@ class _ConvBNReLU(torch.autograd.Function):
     ``keep`` is set, z (in the compute dtype); it recomputes the ReLU mask
     and the normalised input chunk by chunk, sums the two per-channel terms
     of BN's backward in one pass and forms the gradients of the conv in a
-    second. With ``keep`` off (remat of the stem) z is not kept either: the
-    conv is recomputed chunk by chunk, chunk for chunk the same as in the
-    forward, so the numbers do not depend on ``keep``. The running
-    statistics move in the forward, unless the BN's ``update_stats`` is
-    off.
+    second: on the card the weight gradient of a conv whose groups have one
+    input channel each (a depthwise conv, or the stem's one input channel)
+    by ``kernels.dw_wgrad`` (:func:`_kernel_wgrad`; a launch a chunk, each
+    marked ``msl.train.dw_wgrad``), every other gradient by
+    ``aten.convolution_backward``. With
+    ``keep`` off (remat of the stem) z is not kept either: the conv is
+    recomputed chunk by chunk, chunk for chunk the same as in the forward,
+    so the numbers do not depend on ``keep``. The running statistics move in
+    the forward, unless the BN's ``update_stats`` is off.
 
     Under a data mesh (``parallel.data_parallel``) every rank holds as many
     samples (and, depth-split, as many planes), and the per-channel sums
@@ -415,19 +420,36 @@ class _ConvBNReLU(torch.autograd.Function):
         need_x = ctx.needs_input_grad[0]
         grad_x = torch.empty_like(x) if need_x and len(ctx.chunks) > 1 else None
         grad_w = torch.zeros(weight.shape, dtype=torch.float32, device=weight.device)
+        kernel = _kernel_wgrad(conv, weight, x)
+        fmt = torch.channels_last_3d
         for sl in ctx.chunks:
             xhat, g = recompute(sl)
             gz = (scale * (g - mean_g - xhat * mean_gx)).to(x.dtype)
-            gx, gw, _ = torch.ops.aten.convolution_backward(
-                gz, x[sl], weight, None, conv.stride, conv.padding, conv.dilation, False,
-                [0, 0, 0], conv.groups, [need_x, True, False])
-            grad_w += gw.float()
+            if need_x or not kernel:
+                gx, gw, _ = torch.ops.aten.convolution_backward(
+                    gz, x[sl], weight, None, conv.stride, conv.padding, conv.dilation, False,
+                    [0, 0, 0], conv.groups, [need_x, not kernel, False])
+            if kernel:
+                with phases("msl.train.dw_wgrad"):
+                    depthwise_wgrad_cuda(x[sl].contiguous(memory_format=fmt),
+                                         gz.contiguous(memory_format=fmt), grad_w, conv.stride,
+                                         conv.padding, conv.dilation)
+            else:
+                grad_w += gw.float()
             if grad_x is not None:
                 grad_x[sl] = gx
             elif need_x:  # one chunk
                 grad_x = gx
         return (grad_x, grad_w.to(weight.dtype), sum_gx.to(gamma.dtype),
                 sum_g.to(beta.dtype), None, None, None)
+
+
+def _kernel_wgrad(conv, weight: torch.Tensor, x: torch.Tensor) -> bool:
+    """Whether :class:`_ConvBNReLU`'s weight gradient goes to ``kernels.dw_wgrad``:
+    on the card, for a conv of one input channel a group (depthwise, or one
+    input channel for all outputs). The CPU keeps aten's, so its numbers are
+    the ones the port has always had."""
+    return x.is_cuda and weight.shape[1] == 1 and conv.groups in (1, weight.shape[0])
 
 
 def _chunks(n: int, per_sample: int) -> list:

@@ -9,7 +9,10 @@ present, so every pytest worker collects the same tests. Run on a card with
   batch 2, 3 rows) whose capture marks its phases equals, bit for bit, one
   captured with no marks (``train.graphs.marking`` swapped for a null
   context), and a call of either makes the same host launches under the
-  profiler: the events are nodes of the graph, not launches.
+  profiler: the events are nodes of the graph, not launches. The marks are
+  the step's phases, with each weight-gradient launch of the depthwise
+  convs and the stem (``msl.train.dw_wgrad``) between the forward's end and
+  the backward's.
 * A ConvNet epoch (32^3, batch 8): while a profiler records, each call
   samples the previous call's last replay once it has ended, and the
   step's forward, backward and update add up to the marked replay's device
@@ -104,7 +107,12 @@ def test_markers_change_no_number_and_add_no_launch(monkeypatch, deterministic):
             torch.cuda.synchronize()
         launches[marked] = _launches(prof)
         marks[marked] = [name for name, *_ in epoch.graphed.captured.marks]
-    assert marks[True] == [*STEP, "msl.epoch.replay"] and marks[False] == []
+    # each weight-gradient launch of the depthwise convs and the stem is
+    # marked inside the backward
+    dw = [i for i, name in enumerate(marks[True]) if name == "msl.train.dw_wgrad"]
+    assert dw and marks[False] == []
+    assert [m for m in marks[True] if m != "msl.train.dw_wgrad"] == [*STEP, "msl.epoch.replay"]
+    assert marks[True][dw[0] - 1] == STEP[0] and marks[True][dw[-1] + 1] == STEP[1]
     (a, ma), (b, mb) = out[True], out[False]
     for key in ma:
         assert torch.equal(ma[key], mb[key]), key

@@ -188,7 +188,8 @@ def test_graphed_epoch_samples_only_ended_replays():
 MARKED = {"train.forward_ms.convnet": "msl.step.forward",
           "train.backward_ms.convnet": "msl.step.backward",
           "train.update_ms.convnet": "msl.step.update",
-          "convnet.norm_act_ms.train": "msl.convnet.norm_act"}
+          "convnet.norm_act_ms.train": "msl.convnet.norm_act",
+          "train.dw_wgrad_ms.train": "msl.train.dw_wgrad"}
 
 
 def _read(metric, ctx):
