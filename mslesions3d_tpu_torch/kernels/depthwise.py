@@ -44,10 +44,13 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .build import load_library
+from .build import alignment, define_op, launch, load_library
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"tiled": 0, "direct": 1}
+# csrc/depthwise.cu's entry point: (argtypes, restype)
+ENTRY_POINTS = {"msl_depthwise_bn_relu": ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 13
+                                          + (ctypes.c_void_p,), ctypes.c_int)}
 SMEM_MAX = 232_448  # a Hopper block's opt-in maximum of shared memory
 # two CTAs a SM: 2 * (smem + 1 KB the SM reserves per block) <= 228 KB
 SMEM_TWO_PER_SM = 115_712
@@ -194,17 +197,6 @@ def depthwise_bn_relu(x: torch.Tensor, weights: torch.Tensor, gamma: torch.Tenso
     return y.to(x.dtype).permute(0, 4, 1, 2, 3)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("depthwise")
-    lib.msl_depthwise_bn_relu.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
-    lib.msl_depthwise_bn_relu.restype = ctypes.c_int
-    lib.msl_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.msl_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def fused_depthwise_bn_relu_cuda(x: torch.Tensor, weights: torch.Tensor, gamma: torch.Tensor,
                                  beta: torch.Tensor,
                                  plan: DepthwisePlan | None = None) -> torch.Tensor:
@@ -235,24 +227,11 @@ def fused_depthwise_bn_relu_cuda(x: torch.Tensor, weights: torch.Tensor, gamma: 
 fused_depthwise_bn_relu_cuda.launches = 0
 
 
-@torch.library.custom_op("msl::fused_depthwise_bn_relu", mutates_args=())
-def _depthwise_op(x: torch.Tensor, weights: torch.Tensor, gamma: torch.Tensor,
-                  beta: torch.Tensor, tile: list[int]) -> torch.Tensor:
-    """K2 as a registered op; ``tile`` is [] (the planner's choice) or a
-    :class:`DepthwisePlan`'s fields, the variant as 0 (tiled) or 1 (direct)."""
-    if x.device.type == "cpu":
-        return depthwise_bn_relu(x, weights, gamma, beta)
-    return _launch(x, weights, gamma, beta, tile)
-
-
-@_depthwise_op.register_fake
-def _(x, weights, gamma, beta, tile):
-    return torch.empty_like(x, memory_format=torch.channels_last_3d)
-
-
 def _launch(x: torch.Tensor, weights: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             tile: list) -> torch.Tensor:
-    """Check the operands and launch K2 on CUDA tensors."""
+    """Check the operands and launch K2 on CUDA tensors; ``tile`` is [] (the
+    planner's choice) or a :class:`DepthwisePlan`'s fields, the variant as 0
+    (tiled) or 1 (direct)."""
     tensors = (x, weights, gamma, beta)
     if x.dim() != 5:
         raise ValueError(f"fused_depthwise_bn_relu_cuda: x must be (B, C, D, H, W), got "
@@ -287,7 +266,7 @@ def _launch(x: torch.Tensor, weights: torch.Tensor, gamma: torch.Tensor, beta: t
     out = torch.empty_like(x, memory_format=torch.channels_last_3d)
     if out.numel() == 0:
         return out
-    align = min(16, x.data_ptr() & -x.data_ptr())
+    align = alignment(x)
     if not tile:
         plan = plan_depthwise(x.dtype, x.shape, align)
     else:
@@ -296,18 +275,20 @@ def _launch(x: torch.Tensor, weights: torch.Tensor, gamma: torch.Tensor, beta: t
                                   cs=plan.cs or None, td=plan.td or None, th=plan.th or None):
             raise ValueError(f"fused_depthwise_bn_relu_cuda: {plan} is not a plan for x "
                              f"{tuple(x.shape)} {x.dtype} at {align}-byte alignment")
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.msl_depthwise_bn_relu(
-            x.data_ptr(), weights.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            out.data_ptr(), DTYPES[x.dtype], b, d, h, w, c, VARIANTS[plan.variant], plan.cs,
-            plan.td, plan.th, plan.threads, plan.smem, plan.vec, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"fused_depthwise_bn_relu_cuda: launch failed: "
-            f"{lib.msl_cuda_error_string(err).decode()}"
-        )
+    launch("fused_depthwise_bn_relu_cuda", load_library("depthwise", **ENTRY_POINTS),
+           "msl_depthwise_bn_relu", x.device, x.data_ptr(), weights.data_ptr(),
+           gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), DTYPES[x.dtype], b, d, h, w, c,
+           VARIANTS[plan.variant], plan.cs, plan.td, plan.th, plan.threads, plan.smem, plan.vec)
     fused_depthwise_bn_relu_cuda.launches += 1
     return out
+
+
+# K2 as a registered op
+define_op(
+    "fused_depthwise_bn_relu(Tensor x, Tensor weights, Tensor gamma, Tensor beta, "
+    "SymInt[] tile) -> Tensor",
+    lambda x, weights, gamma, beta, tile: depthwise_bn_relu(x, weights, gamma, beta),
+    _launch,
+    lambda x, weights, gamma, beta, tile: torch.empty_like(
+        x, memory_format=torch.channels_last_3d),
+)

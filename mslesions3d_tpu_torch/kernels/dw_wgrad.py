@@ -54,9 +54,12 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .build import load_library
+from .build import alignment, define_op, launch, load_library
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/dw_wgrad.cu's entry point: (argtypes, restype)
+ENTRY_POINTS = {"msl_dw_wgrad": ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 24
+                                 + (ctypes.c_void_p,), ctypes.c_int)}
 SMEM_MAX = 232_448  # a Hopper block's opt-in maximum of shared memory
 SMEM_SM = 233_472  # a SM's shared memory for its blocks (228 KB), 1 KB of it reserved a block
 # two CTAs a SM: 2 * (smem + 1 KB) <= 228 KB
@@ -250,16 +253,6 @@ def depthwise_wgrad(x: torch.Tensor, gz: torch.Tensor, stride, padding) -> torch
     return out
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("dw_wgrad")
-    lib.msl_dw_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 24 + [ctypes.c_void_p]
-    lib.msl_dw_wgrad.restype = ctypes.c_int
-    lib.msl_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.msl_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check(x, gz, grad_w, stride, padding, dilation) -> None:
     """Raises on what the kernel does not take, on either route."""
     name = "depthwise_wgrad_cuda"
@@ -323,35 +316,13 @@ def depthwise_wgrad_cuda(x: torch.Tensor, gz: torch.Tensor, grad_w: torch.Tensor
 depthwise_wgrad_cuda.launches = 0
 
 
-# The op is defined through torch.library.Library, not torch.library.custom_op:
-# a custom_op's kernel runs under torch._disable_dynamo, whose first call
-# imports torch._dynamo (~5 s on the card's machine), which the training
-# path would otherwise never import. A trace names it all the same.
-_LIBRARY = torch.library.Library("msl", "FRAGMENT")
-_LIBRARY.define("depthwise_wgrad(Tensor x, Tensor gz, Tensor(a!) grad_w, int[] stride, "
-                "int[] padding, int[] tile) -> ()")
-
-
-def _wgrad_cpu(x, gz, grad_w, stride, padding, tile) -> None:
-    """The op on CPU tensors: adds the plain version (``tile`` unused)."""
-    grad_w += depthwise_wgrad(x, gz, stride, padding)
-
-
-_LIBRARY.impl("depthwise_wgrad", _wgrad_cpu, "CPU")
-
-
-@torch.library.register_fake("msl::depthwise_wgrad")
-def _(x, gz, grad_w, stride, padding, tile):
-    return None
-
-
 def _launch(x, gz, grad_w, stride, padding, tile) -> None:
     """The op on CUDA tensors that :func:`_check` passed: launches the
     kernel; ``tile`` is [] (the planner's choice) or a
     :class:`DwWgradPlan`'s fields."""
     if x.numel() == 0 or gz.numel() == 0:
         return
-    align = min(16, x.data_ptr() & -x.data_ptr(), gz.data_ptr() & -gz.data_ptr())
+    align = alignment(x, gz)
     shape, stride, padding = tuple(x.shape), tuple(stride), tuple(padding)
     channels = gz.shape[1]
     if not tile:
@@ -365,18 +336,23 @@ def _launch(x, gz, grad_w, stride, padding, tile) -> None:
     n, cx, d, h, w = shape
     c = gz.shape[1]
     ws = torch.empty(plan.ctas * 27 * c, dtype=torch.float32, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.msl_dw_wgrad(
-            x.data_ptr(), gz.data_ptr(), grad_w.data_ptr(), ws.data_ptr(), DTYPES[x.dtype],
-            n, d, h, w, c, cx, *stride, *padding, plan.cs, plan.tn, plan.td, plan.th, plan.tw,
-            plan.p, plan.threads, plan.ctas, plan.smem, plan.vec, plan.xvec,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"depthwise_wgrad_cuda: launch failed: "
-                           f"{lib.msl_cuda_error_string(err).decode()}")
+    launch("depthwise_wgrad_cuda", load_library("dw_wgrad", **ENTRY_POINTS), "msl_dw_wgrad",
+           x.device, x.data_ptr(), gz.data_ptr(), grad_w.data_ptr(), ws.data_ptr(),
+           DTYPES[x.dtype], n, d, h, w, c, cx, *stride, *padding, plan.cs, plan.tn, plan.td,
+           plan.th, plan.tw, plan.p, plan.threads, plan.ctas, plan.smem, plan.vec, plan.xvec)
     depthwise_wgrad_cuda.launches += 1
 
 
-_LIBRARY.impl("depthwise_wgrad", _launch, "CUDA")
+def _wgrad_cpu(x, gz, grad_w, stride, padding, tile) -> None:
+    """The op on CPU tensors: adds the plain version (``tile`` unused)."""
+    grad_w += depthwise_wgrad(x, gz, stride, padding)
+
+
+# K4 as a registered op: it adds into grad_w
+define_op(
+    "depthwise_wgrad(Tensor x, Tensor gz, Tensor(a!) grad_w, int[] stride, int[] padding, "
+    "int[] tile) -> ()",
+    _wgrad_cpu,
+    _launch,
+    lambda x, gz, grad_w, stride, padding, tile: None,
+)

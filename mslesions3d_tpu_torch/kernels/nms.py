@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.boxes import pairwise_iou
-from .build import load_library
+from .build import define_op, launch, load_library
 
 SMEM_MAX = 232_448  # a Hopper block's opt-in maximum of shared memory
 GRID_YZ_MAX = 65_535  # gridDim.y and gridDim.z
@@ -45,6 +45,12 @@ GRID_YZ_MAX = 65_535  # gridDim.y and gridDim.z
 # of its walking warp: 32 words, 2048 candidates
 WARP_WALK_WORDS = 32
 WIDE_STAGES = (3, 2, 1, 0)
+# csrc/nms.cu's entry points: (argtypes, restype)
+ENTRY_POINTS = {
+    "msl_greedy_nms": ((ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                                  ctypes.c_int, ctypes.c_void_p), ctypes.c_int),
+    "msl_nms_walk_smem_bytes": ((ctypes.c_int, ctypes.c_int), ctypes.c_longlong),
+}
 
 
 @dataclass(frozen=True)
@@ -137,21 +143,6 @@ def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float) -> 
         keep = new
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("nms")
-    lib.msl_greedy_nms.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.msl_greedy_nms.restype = ctypes.c_int
-    lib.msl_nms_walk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.msl_nms_walk_smem_bytes.restype = ctypes.c_longlong
-    lib.msl_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.msl_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float,
                     plan: NmsPlan | None = None) -> torch.Tensor:
     """Batched exact greedy NMS: boxes (N, K, 6) float32, valid (N, K) bool -> keep (N, K).
@@ -179,22 +170,6 @@ def greedy_nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float
 greedy_nms_cuda.launches = 0
 
 
-@torch.library.custom_op("msl::greedy_nms", mutates_args=())
-def _greedy_nms_op(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float, walk: str,
-                   stages: int) -> torch.Tensor:
-    """K1 as a registered op; ``walk`` "" and ``stages`` -1 leave the walk to
-    :func:`plan_nms`."""
-    if boxes.device.type == "cpu":
-        keep = greedy_nms(boxes, valid, max_overlap)
-        return keep.clone() if keep is valid else keep  # an op's output never aliases its input
-    return _launch(boxes, valid, max_overlap, walk or None, None if stages < 0 else stages)
-
-
-@_greedy_nms_op.register_fake
-def _(boxes, valid, max_overlap, walk, stages):
-    return torch.empty_like(valid)
-
-
 def _launch(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float,
             walk: str | None, stages: int | None) -> torch.Tensor:
     """Check the operands and launch K1 on CUDA tensors."""
@@ -219,18 +194,25 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor, max_overlap: float,
     nwp = mask_words(k)
     # the mask rows (n, k, nwp), then the transposed diagonal blocks (n, nwp, 64)
     scratch = torch.empty(n * nwp * (k + 64), dtype=torch.int64, device=boxes.device)
-    lib = _library()
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.msl_greedy_nms(
-            boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
-            scratch[n * k * nwp:].data_ptr(), keep.data_ptr(),
-            n, k, float(max_overlap), -1 if plan.walk == "warp" else plan.stages, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"greedy_nms_cuda: launch failed: {lib.msl_cuda_error_string(err).decode()}"
-        )
+    launch("greedy_nms_cuda", load_library("nms", **ENTRY_POINTS), "msl_greedy_nms",
+           boxes.device, boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+           scratch[n * k * nwp:].data_ptr(), keep.data_ptr(), n, k, float(max_overlap),
+           -1 if plan.walk == "warp" else plan.stages)
     greedy_nms_cuda.launches += 1
     return keep
+
+
+def _greedy_nms_cpu(boxes, valid, max_overlap, walk, stages) -> torch.Tensor:
+    keep = greedy_nms(boxes, valid, max_overlap)
+    return keep.clone() if keep is valid else keep  # an op's output never aliases its input
+
+
+# K1 as a registered op; ``walk`` "" and ``stages`` -1 leave the walk to plan_nms
+define_op(
+    "greedy_nms(Tensor boxes, Tensor valid, float max_overlap, str walk, SymInt stages) -> Tensor",
+    _greedy_nms_cpu,
+    lambda boxes, valid, max_overlap, walk, stages: _launch(
+        boxes, valid, max_overlap, walk or None, None if stages < 0 else stages),
+    lambda boxes, valid, max_overlap, walk, stages: torch.empty_like(valid),
+)
 

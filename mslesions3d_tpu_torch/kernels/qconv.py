@@ -64,12 +64,15 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .build import load_library
+from .build import alignment, define_op, launch, load_library
 
 QMAX = 128  # the largest magnitude of an int8 operand
 IN_DTYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 MODES = {"sums": 0, "float": 1, "codes": 2, "heads": 3}
 VARIANTS = {"direct": 0, "igemm": 1, "stem": 2, "depthwise": 3}
+# csrc/qconv.cu's entry point: (argtypes, restype)
+ENTRY_POINTS = {"msl_qconv": ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 31
+                              + (ctypes.c_void_p,), ctypes.c_int)}
 # csrc/qconv.cu's Tile table, in its order: name -> (BM, BN, WM, WN, WK, KC,
 # stages): a CTA's rows and columns, its warps along M, N and K, the bytes of
 # K a stage and the stages in flight
@@ -447,72 +450,6 @@ def qconv_heads_cuda(q: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bia
     return torch.ops.msl.qconv_heads(q, wq, scale, bias, int(split))
 
 
-@torch.library.custom_op("msl::qconv", mutates_args=())
-def _qconv_op(q: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-              stride: list[int], groups: int, relu: bool) -> torch.Tensor:
-    """Q1 in float32 as a registered op."""
-    if q.device.type == "cpu":
-        return qconv_reference(q, wq, scale, bias, stride, groups, relu)
-    return _launch(q, wq, scale, bias, tuple(stride), groups, relu, "float")
-
-
-@_qconv_op.register_fake
-def _(q, wq, scale, bias, stride, groups, relu):
-    b, *dims, _ = q.shape
-    return q.new_empty((b, *_out_dims(dims, wq.shape[0], stride), wq.shape[-1]),
-                       dtype=torch.float32)
-
-
-@torch.library.custom_op("msl::qconv_codes", mutates_args=())
-def _qconv_codes_op(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    stride: list[int], groups: int, relu: bool, sx_out: torch.Tensor,
-                    sx_in: torch.Tensor | None) -> torch.Tensor:
-    """Q1 writing int8 codes, as a registered op."""
-    if x.device.type == "cpu":
-        return qconv_codes_reference(x, wq, scale, bias, sx_out, stride, groups, relu, sx_in)
-    return _launch(x, wq, scale, bias, tuple(stride), groups, relu, "codes", sx_out=sx_out,
-                   sx_in=sx_in)
-
-
-@_qconv_codes_op.register_fake
-def _(x, wq, scale, bias, stride, groups, relu, sx_out, sx_in):
-    b, *dims, _ = x.shape
-    return x.new_empty((sx_out.shape[0], b, *_out_dims(dims, wq.shape[0], stride),
-                        wq.shape[-1]), dtype=torch.int8)
-
-
-@torch.library.custom_op("msl::qconv_heads", mutates_args=())
-def _qconv_heads_op(q: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    split: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Q1 over both heads of a feature layer, as a registered op."""
-    if q.device.type == "cpu":
-        return qconv_heads_reference(q, wq, scale, bias, split)
-    return _launch(q, wq, scale, bias, (1, 1, 1), 1, False, "heads", split=split)
-
-
-@_qconv_heads_op.register_fake
-def _(q, wq, scale, bias, split):
-    b, *dims, _ = q.shape
-    out = (b, *_out_dims(dims, wq.shape[0], (1, 1, 1)))
-    return (q.new_empty((*out, split), dtype=torch.float32),
-            q.new_empty((*out, wq.shape[-1] - split), dtype=torch.float32))
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("qconv")
-    lib.msl_qconv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 31 + [ctypes.c_void_p]
-    lib.msl_qconv.restype = ctypes.c_int
-    lib.msl_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.msl_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _alignment(*tensors) -> int:
-    """The largest power of two up to 16 that every tensor's data pointer is a multiple of."""
-    return min(16, *(t.data_ptr() & -t.data_ptr() if t.data_ptr() else 16 for t in tensors))
-
-
 def _launch(x, wq, scale, bias, stride, groups, relu, mode, *, sx_out=None, sx_in=None, split=0,
             plan=None):
     """Check the operands and launch Q1 on CUDA tensors; ``mode`` is one of
@@ -566,7 +503,7 @@ def _launch(x, wq, scale, bias, stride, groups, relu, mode, *, sx_out=None, sx_i
     if math.prod(dims) * cout == 0:
         return result
     vec = vec and ptr0 % 16 == 0 and ptr1 % 16 == 0
-    align = _alignment(x, wk)
+    align = alignment(x, wk)
     shape, wshape = tuple(x.shape), tuple(wq.shape)
     if plan is None:
         plan = plan_qconv(shape, wshape, tuple(stride), groups, x.dtype, align)
@@ -575,21 +512,52 @@ def _launch(x, wq, scale, bias, stride, groups, relu, mode, *, sx_out=None, sx_i
                             ty=plan.ty or None, tx=plan.tx or None, cs=plan.cs or None):
         raise ValueError(f"qconv: {plan} is not a plan for x {shape} {x.dtype}, weights {wshape}"
                          f", groups {groups}, strides {tuple(stride)} at {align}-byte alignment")
-    lib = _library()
     tile = list(IGEMM_TILES).index(plan.tile) if plan.tile else 0
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.msl_qconv(
-            x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            None if sx_in is None else sx_in.data_ptr(),
-            None if sx_out is None else sx_out.data_ptr(), ptr0, ptr1,
-            IN_DTYPES[x.dtype], MODES[mode], max(ncodes, 1), int(split), int(relu), int(vec),
-            b, d, h, w, cin, od, oh, ow, cout, k, *stride, int(depthwise),
-            VARIANTS[plan.variant], tile, plan.tz, plan.ty, plan.tx, plan.cs, plan.walkers,
-            plan.vec, int(plan.variant == "direct" and plan.vec == 4), plan.threads, plan.smem,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"qconv: launch failed: {lib.msl_cuda_error_string(err).decode()}")
+    launch("qconv", load_library("qconv", **ENTRY_POINTS), "msl_qconv", x.device,
+           x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+           None if sx_in is None else sx_in.data_ptr(),
+           None if sx_out is None else sx_out.data_ptr(), ptr0, ptr1,
+           IN_DTYPES[x.dtype], MODES[mode], max(ncodes, 1), int(split), int(relu), int(vec),
+           b, d, h, w, cin, od, oh, ow, cout, k, *stride, int(depthwise),
+           VARIANTS[plan.variant], tile, plan.tz, plan.ty, plan.tx, plan.cs, plan.walkers,
+           plan.vec, int(plan.variant == "direct" and plan.vec == 4), plan.threads, plan.smem)
     qconv_cuda.launches += 1
     return result
+
+
+def _out_shape(x, wq, stride) -> tuple:
+    b, *dims, _ = x.shape
+    return (b, *_out_dims(dims, wq.shape[0], stride))
+
+
+# Q1's three epilogues as registered ops: float32, int8 codes, the two heads
+define_op(
+    "qconv(Tensor q, Tensor wq, Tensor scale, Tensor bias, SymInt[] stride, SymInt groups, "
+    "bool relu) -> Tensor",
+    qconv_reference,
+    lambda q, wq, scale, bias, stride, groups, relu: _launch(
+        q, wq, scale, bias, tuple(stride), groups, relu, "float"),
+    lambda q, wq, scale, bias, stride, groups, relu: q.new_empty(
+        (*_out_shape(q, wq, stride), wq.shape[-1]), dtype=torch.float32),
+)
+define_op(
+    "qconv_codes(Tensor x, Tensor wq, Tensor scale, Tensor bias, SymInt[] stride, "
+    "SymInt groups, bool relu, Tensor sx_out, Tensor? sx_in) -> Tensor",
+    lambda x, wq, scale, bias, stride, groups, relu, sx_out, sx_in: qconv_codes_reference(
+        x, wq, scale, bias, sx_out, stride, groups, relu, sx_in),
+    lambda x, wq, scale, bias, stride, groups, relu, sx_out, sx_in: _launch(
+        x, wq, scale, bias, tuple(stride), groups, relu, "codes", sx_out=sx_out, sx_in=sx_in),
+    lambda x, wq, scale, bias, stride, groups, relu, sx_out, sx_in: x.new_empty(
+        (sx_out.shape[0], *_out_shape(x, wq, stride), wq.shape[-1]), dtype=torch.int8),
+)
+define_op(
+    "qconv_heads(Tensor q, Tensor wq, Tensor scale, Tensor bias, SymInt split) "
+    "-> (Tensor, Tensor)",
+    qconv_heads_reference,
+    lambda q, wq, scale, bias, split: _launch(q, wq, scale, bias, (1, 1, 1), 1, False, "heads",
+                                              split=split),
+    lambda q, wq, scale, bias, split: tuple(
+        q.new_empty((*_out_shape(q, wq, (1, 1, 1)), n), dtype=torch.float32)
+        for n in (split, wq.shape[-1] - split)),
+)
 

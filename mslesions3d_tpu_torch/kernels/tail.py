@@ -52,13 +52,12 @@ pw_gamma/pw_beta (C_out,) float32, stride (1 or 2).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from dataclasses import dataclass
 
 import torch
 
-from .build import load_library
+from .build import define_op, launch, load_library
 from .depthwise import DTYPES, depthwise_taps
 
 # The per-block kernels keep one tile's depthwise result for every input
@@ -163,18 +162,15 @@ def tail_reference(x: torch.Tensor, layers, emit) -> list:
     return outs
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("tail")
-    lib.msl_tail_block.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    lib.msl_tail_block.restype = ctypes.c_int
-    lib.msl_tail_cluster.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-                                     ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                                     ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-    lib.msl_tail_cluster.restype = ctypes.c_int
-    lib.msl_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.msl_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+# csrc/tail.cu's entry points: (argtypes, restype)
+ENTRY_POINTS = {
+    "msl_tail_block": ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,),
+                       ctypes.c_int),
+    "msl_tail_cluster": ((ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                          ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p),
+                         ctypes.c_int),
+}
 
 
 def _layer_operands(layer: dict, x: torch.Tensor, cin: int) -> tuple:
@@ -228,23 +224,6 @@ def _unflatten(weights, strides) -> list:
     return [dict(zip(WEIGHTS, weights[6 * i: 6 * i + 6]), stride=s) for i, s in enumerate(strides)]
 
 
-@torch.library.custom_op("msl::fused_tail", mutates_args=())
-def _tail_op(x: torch.Tensor, weights: list[torch.Tensor], strides: list[int],
-             emit: list[int]) -> list[torch.Tensor]:
-    """K3 as a registered op: the blocks' weights flat, six a block."""
-    layers = _unflatten(weights, strides)
-    if x.device.type == "cpu":
-        return tail_reference(x, layers, emit)
-    return _launch(x, layers, emit)
-
-
-@_tail_op.register_fake
-def _(x, weights, strides, emit):
-    specs = [(w.shape[0], w.shape[1], s) for w, s in zip(weights[3::6], strides)]
-    shapes = _out_shapes(x.permute(0, 2, 3, 4, 1), specs)
-    return [x.new_empty(shapes[i]).permute(0, 4, 1, 2, 3) for i in emit]
-
-
 def _launch(x: torch.Tensor, layers, emit) -> list:
     """Check the operands and launch K3 on CUDA tensors."""
     if x.dim() != 5 or x.dtype not in DTYPES:
@@ -269,13 +248,10 @@ def _launch(x: torch.Tensor, layers, emit) -> list:
     specs = [(op[3].shape[0], op[3].shape[1], int(layer["stride"]))
              for op, layer in zip(operands, layers)]
     plan = plan_tail(x.dtype, x.shape, specs)
-    lib = _library()
     cur = x.permute(0, 2, 3, 4, 1)  # (B, D, H, W, C) contiguous
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if plan.variant == "cluster":
-            return _run_cluster(lib, cur, operands, specs, emit, plan, stream)
-        return _run_blocks(lib, cur, operands, specs, emit, stream)
+    if plan.variant == "cluster":
+        return _run_cluster(cur, operands, specs, emit, plan)
+    return _run_blocks(cur, operands, specs, emit)
 
 
 def _out_shapes(cur: torch.Tensor, specs) -> list:
@@ -287,7 +263,7 @@ def _out_shapes(cur: torch.Tensor, specs) -> list:
     return shapes
 
 
-def _run_cluster(lib, cur, operands, specs, emit, plan, stream) -> list:
+def _run_cluster(cur, operands, specs, emit, plan) -> list:
     """The whole bf16 chain in one launch of the cluster kernel."""
     shapes = _out_shapes(cur, specs)
     maps = {i: torch.empty(shapes[i], dtype=cur.dtype, device=cur.device) for i in sorted(emit)}
@@ -299,18 +275,15 @@ def _run_cluster(lib, cur, operands, specs, emit, plan, stream) -> list:
         ptrs.append(maps[i].data_ptr() if i in maps else None)
         dims += [cin, cout, stride, *in_dims, *shapes[i][1:4], *plan.slices[i]]
         in_dims = shapes[i][1:4]
-    err = lib.msl_tail_cluster(
-        cur.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
-        len(specs), (ctypes.c_int * len(plan.offsets))(*plan.offsets), cur.shape[0], stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_tail_cuda: launch of the cluster kernel failed: "
-                           f"{lib.msl_cuda_error_string(err).decode()}")
+    launch("fused_tail_cuda: the cluster kernel", load_library("tail", **ENTRY_POINTS),
+           "msl_tail_cluster", cur.device, cur.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs),
+           (ctypes.c_int * len(dims))(*dims), len(specs),
+           (ctypes.c_int * len(plan.offsets))(*plan.offsets), cur.shape[0])
     fused_tail_cuda.launches += 1
     return [m.permute(0, 4, 1, 2, 3) for m in maps.values()]
 
 
-def _run_blocks(lib, cur, operands, specs, emit, stream) -> list:
+def _run_blocks(cur, operands, specs, emit) -> list:
     """One launch per block: block_mma for bf16, block_f32 for float32."""
     dtype, n = cur.dtype, len(specs)
     outs = []
@@ -326,17 +299,28 @@ def _run_blocks(lib, cur, operands, specs, emit, stream) -> list:
             emitted = (chain if dtype == torch.float32
                        else torch.empty(shape, dtype=dtype, device=cur.device))
         separate = emitted is not None and emitted is not chain
-        err = lib.msl_tail_block(
-            cur.data_ptr(), *(t.data_ptr() for t in op),
-            chain.data_ptr() if chain is not None else 0,
-            emitted.data_ptr() if separate else 0,
-            int(i > 0), DTYPES[dtype], b, d_in, h_in, w_in, cin, cout, stride, stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"fused_tail_cuda: launch of block {i} failed: "
-                               f"{lib.msl_cuda_error_string(err).decode()}")
+        launch(f"fused_tail_cuda: block {i}", load_library("tail", **ENTRY_POINTS),
+               "msl_tail_block", cur.device, cur.data_ptr(), *(t.data_ptr() for t in op),
+               chain.data_ptr() if chain is not None else 0,
+               emitted.data_ptr() if separate else 0,
+               int(i > 0), DTYPES[dtype], b, d_in, h_in, w_in, cin, cout, stride)
         fused_tail_cuda.launches += 1
         if emitted is not None:
             outs.append(emitted.permute(0, 4, 1, 2, 3))
         cur = chain
     return outs
+
+
+def _tail_fake(x, weights, strides, emit) -> list:
+    specs = [(w.shape[0], w.shape[1], s) for w, s in zip(weights[3::6], strides)]
+    shapes = _out_shapes(x.permute(0, 2, 3, 4, 1), specs)
+    return [x.new_empty(shapes[i]).permute(0, 4, 1, 2, 3) for i in emit]
+
+
+# K3 as a registered op: the blocks' weights flat, six a block
+define_op(
+    "fused_tail(Tensor x, Tensor[] weights, SymInt[] strides, SymInt[] emit) -> Tensor[]",
+    lambda x, weights, strides, emit: tail_reference(x, _unflatten(weights, strides), emit),
+    lambda x, weights, strides, emit: _launch(x, _unflatten(weights, strides), emit),
+    _tail_fake,
+)

@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from mslesions3d_tpu_torch.kernels.build import load_library
 from mslesions3d_tpu_torch.kernels.nms import (
-    _library,
+    ENTRY_POINTS,
     greedy_nms,
     greedy_nms_cuda,
     plan_nms,
@@ -76,7 +77,7 @@ def test_every_wide_walk_equals_plain(stages):
 def test_plan_smem_matches_the_library():
     """plan_nms's shared memory is what csrc/nms.cu launches with."""
     _need_card()
-    lib = _library()
+    lib = load_library("nms", **ENTRY_POINTS)
     for k in (1, 1000, 2048, 2049, 3942, 9472, 9473, 14337, 28544, 28545):
         plan = plan_nms(k)
         stages = -1 if plan.walk == "warp" else plan.stages
